@@ -1,0 +1,142 @@
+"""Block assembly: pattern-driven super-blocks run over depth (counterpart
+of `repro/models/transformer.py`, attention and dense-MLP parts).
+
+A *super-block* is one repetition of ``cfg.pattern``.  Where the JAX version
+stacks all ``cfg.num_super_blocks`` repetitions on a leading axis and runs
+one `jax.lax.scan`, the port keeps a list of per-super-block parameter
+dicts (``blocks[i]["pos{j}"]``) and a Python loop over them.
+
+Only attention mixers and dense MLPs are ported: mamba, mLSTM and sLSTM
+positions and MoE positions raise `NotImplementedError`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import dtype_of, init_mlp, init_norm, mlp_apply, norm_apply
+from repro_torch.serve import kv_cache as kvc
+
+_NOT_PORTED = ("ROADMAP.md Queue 1, 'Other architectures': mamba, xLSTM "
+               "(mLSTM/sLSTM with kernels K7/K8) and MoE are not ported yet")
+
+
+def _position_uses_moe(cfg: ArchConfig, pos: int) -> bool:
+    return cfg.n_experts > 0 and pos in cfg.moe_positions
+
+
+def _has_ffn(cfg: ArchConfig, kind: str, pos: int) -> bool:
+    if kind in ("mlstm", "slstm"):
+        return False                      # xLSTM blocks subsume the FFN
+    return cfg.d_ff > 0 or _position_uses_moe(cfg, pos)
+
+
+def _require_ported(cfg: ArchConfig) -> None:
+    for pos, kind in enumerate(cfg.pattern):
+        if kind != "attn" or _position_uses_moe(cfg, pos):
+            raise NotImplementedError(
+                f"{cfg.name}: block {kind!r} at pattern position {pos}"
+                f"{' with MoE' if kind == 'attn' else ''}: {_NOT_PORTED}")
+
+
+# ----------------------------------------------------------------- init
+def init_super_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """Params for one repetition of the pattern (dict keyed by position)."""
+    _require_ported(cfg)
+    blocks = {}
+    for pos, kind in enumerate(cfg.pattern):
+        b = {"norm1": init_norm(cfg, gen.device),
+             "mixer": attn_mod.init_attention(gen, cfg)}
+        if _has_ffn(cfg, kind, pos):
+            b["norm2"] = init_norm(cfg, gen.device)
+            b["ffn"] = init_mlp(gen, cfg)
+        blocks[f"pos{pos}"] = b
+    return blocks
+
+
+def init_stacked_blocks(gen: torch.Generator, cfg: ArchConfig) -> list[dict]:
+    """One parameter dict per super-block, in depth order."""
+    return [init_super_block(gen, cfg) for _ in range(cfg.num_super_blocks)]
+
+
+def _ffn(b: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
+         pos: int) -> torch.Tensor:
+    if _has_ffn(cfg, kind, pos):
+        x = x + mlp_apply(b["ffn"], norm_apply(b["norm2"], x, cfg), cfg)
+    return x
+
+
+# ----------------------------------------------------------------- train fwd
+def stack_train(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor, *, impl: str = "flash"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss_sum); aux is 0 without MoE."""
+    _require_ported(cfg)
+    for params in blocks:
+        for pos, kind in enumerate(cfg.pattern):
+            b = params[f"pos{pos}"]
+            h = norm_apply(b["norm1"], x, cfg)
+            x = x + attn_mod.attention_train(b["mixer"], h, cfg, positions,
+                                             impl)
+            x = _ffn(b, x, cfg, kind, pos)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ------------------------------------------------------------------ prefill
+def stack_prefill(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, *, impl: str = "flash"
+                  ) -> tuple[torch.Tensor, list[dict]]:
+    """One batched forward over the prompt, returning the final hidden
+    states and every layer's projected k/v: one {"pos{i}": (k, v)} per
+    super-block, k/v (B, S, Hkv, hd).  The caller owns the cache layout."""
+    _require_ported(cfg)
+    kvs = []
+    for params in blocks:
+        layer = {}
+        for pos, kind in enumerate(cfg.pattern):
+            b = params[f"pos{pos}"]
+            h = norm_apply(b["norm1"], x, cfg)
+            mixed, k, v = attn_mod.attention_prefill(b["mixer"], h, cfg,
+                                                     positions, impl)
+            layer[f"pos{pos}"] = (k, v)
+            x = _ffn(b, x + mixed, cfg, kind, pos)
+        kvs.append(layer)
+    return x, kvs
+
+
+# -------------------------------------------------------------- paged decode
+def init_stacked_paged_state(cfg: ArchConfig, num_blocks: int,
+                             block_size: int, device: torch.device
+                             ) -> list[dict]:
+    """Per-layer paged block pools: one {"pos{i}": {"k_pool", "v_pool"}} per
+    super-block, pools (num_blocks, block_size, Hkv, hd) zero-filled."""
+    _require_ported(cfg)
+    pc = kvc.PagedCacheConfig(block_size=block_size, num_blocks=num_blocks,
+                              max_len=block_size)  # geometry only
+    return [{f"pos{pos}": kvc.init_layer_pools(
+        pc, cfg.n_kv_heads, cfg.resolved_head_dim,
+        dtype_of(cfg.compute_dtype), device)
+        for pos in range(len(cfg.pattern))}
+        for _ in range(cfg.num_super_blocks)]
+
+
+def stack_paged_decode(blocks: list[dict], states: list[dict],
+                       x: torch.Tensor, cfg: ArchConfig,
+                       block_tables: torch.Tensor, lengths: torch.Tensor, *,
+                       impl: str = "flash") -> tuple[torch.Tensor, list[dict]]:
+    """One-token decode through every layer; the pools are written in
+    place and returned."""
+    _require_ported(cfg)
+    new_states = []
+    for params, state in zip(blocks, states):
+        layer = {}
+        for pos, kind in enumerate(cfg.pattern):
+            b = params[f"pos{pos}"]
+            h = norm_apply(b["norm1"], x, cfg)
+            mixed, layer[f"pos{pos}"] = attn_mod.attention_paged_decode(
+                b["mixer"], h, cfg, state[f"pos{pos}"], block_tables,
+                lengths, impl)
+            x = _ffn(b, x + mixed, cfg, kind, pos)
+        new_states.append(layer)
+    return x, new_states
