@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The PyTorch port on one NVIDIA GPU: build, check and serve.
+"""The PyTorch port on one NVIDIA GPU: build, check, serve and train.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -21,7 +21,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. parity  -- two served requests teacher-forced through ``impl="flash"``
    and ``impl="plain"`` on the same block tables: logits at every generated
    position agree within the bf16 tolerance.
-6. report  -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
+6. train-kernels -- the flash-attention backward (K4) against its plain
+   version in bf16 and float32, at the training path's geometry, head_dim
+   64 and 128, with GQA, a window and a softcap, each output held to its
+   own scale; two runs of K4 on the same inputs give the same bits.
+7. train   -- `launch.train.run_training` trains qwen3-1.7b at full width
+   (28 layers, bf16, seeded random weights) as W = 4 workers (2 subnets x
+   2 on a ring hub graph, rates 1.0/0.8/1.0/0.6), two_stage mixing, the
+   deadline policy, tau = q = 2, 8 slots of 4 x 128 tokens per worker,
+   through K3 forward and K4 backward; the launch counters show 28 K4
+   launches per worker and slot.  One more slot runs under the profiler.
+8. train-parity -- one worker's gradients on one batch, ``impl="flash"``
+   against ``impl="plain"``, at full width: per-leaf relative error.
+9. uk-serve -- the trained u_k served in memory by `ServeEngine`.
+10. resume -- at the smoke config (a full-width full-state checkpoint is
+   ~30 GB on disk): killed at slot 4 and resumed = the uninterrupted run,
+   bit for bit; `ServeEngine.from_checkpoint` serves that directory.
+11. report -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or away from the repository, it exits non-zero and prints no
@@ -32,6 +48,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,13 +58,19 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.mllsgd import MLLConfig, build_state  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.launch import harness as harness_mod  # noqa: E402
+from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.serve.engine import (PROMPT_PAD, EngineConfig,  # noqa: E402
                                       ServeEngine, poisson_arrivals)
+from repro_torch.train.train_step import per_worker_grads  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel call
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -453,6 +476,346 @@ def phase_parity(cfg, params, reqs, out, device: torch.device) -> None:
         raise AssertionError("argmax agreement below the floor")
 
 
+# ------------------------------------------------------ K4 measurement
+# (b, t, s, h, hkv, hd, causal, window, softcap) for the K4 checks: the
+# training path's geometry, both head dims, GQA groups 2 and 7, window,
+# softcap, T % 64 != 0, T != S
+BWD_CASES = [(4, 128, 128, 16, 8, 128, True, 0, 0.0),
+             (2, 512, 512, 16, 8, 128, True, 0, 0.0),
+             (2, 300, 300, 14, 2, 64, True, 100, 0.0),
+             (2, 200, 200, 8, 4, 128, True, 0, 30.0),
+             (2, 190, 260, 4, 2, 64, False, 0, 0.0)]
+# dq/dk/dv, kernel vs plain, each output held to its own scale (a
+# loss-gradient `do` makes them ~1e-5, unit inputs ~10): every element
+# within atol_of_max * max|want| + rtol * |want|, and the relative norm
+# error ||got - want|| / ||want|| within rel_norm.  float32 differs by
+# summation order; bf16 by one rounding of each output (2^-9 relative).
+BWD_TOL = {torch.float32: dict(atol_of_max=1e-4, rtol=1e-4, rel_norm=1e-4),
+           torch.bfloat16: dict(atol_of_max=1e-2, rtol=1e-2, rel_norm=1e-2)}
+
+
+def _close_scaled(got: torch.Tensor, want: torch.Tensor, tol: dict
+                  ) -> tuple[float, float]:
+    """(max abs error, relative norm error) of one output held to its own
+    scale; raises beyond `BWD_TOL` or when ``want`` is all zeros (a check
+    that a kernel returning zeros would pass)."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    if not scale > 0 or not torch.isfinite(got).all():
+        raise AssertionError(f"degenerate check: max|want| {scale}, got "
+                             f"finite {bool(torch.isfinite(got).all())}")
+    err = (got - want).abs()
+    rel = ((got - want).norm() / want.norm()).item()
+    bad = err > tol["atol_of_max"] * scale + tol["rtol"] * want.abs()
+    if bad.any() or rel > tol["rel_norm"]:
+        raise AssertionError(f"max abs err {err.max().item():.3e} (max|want| "
+                             f"{scale:.3e}), relative norm error {rel:.3e} "
+                             f"beyond {tol} at {int(bad.sum())} elements")
+    return err.max().item(), rel
+
+
+def measure_bwd(timer: Timer, q, k, v, o, lse, do, causal: bool, window: int,
+                softcap: float) -> dict:
+    """K4 against its plain version on the forward's own (o, lse): error,
+    bit-for-bit determinism over two runs, times, bound."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K4 gave other bits on a second run")
+    errs = [_close_scaled(g, w, BWD_TOL[q.dtype]) for g, w in zip(got, want)]
+    b, t, h, hd = q.shape
+    es = q.element_size()
+    # q, o, do, k, v and lse read once; dq, dk, dv written once
+    bytes_ = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    # five products of hd per live pair: s, dp, dq, dk, dv
+    flops = 10 * hd * h * b * (fwd_live_pairs(t, k.shape[1], window)
+                               if causal else t * k.shape[1])
+    bound_ms, bound_by = _bound(bytes_, flops, q.dtype)
+    library_ms = None
+    if softcap == 0.0 and window == 0:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        library_ms = timer.ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+    return {"max_abs_err": max(e for e, _ in errs),
+            "rel_err": max(r for _, r in errs),
+            "max_abs_out": [w.abs().max().item() for w in want],
+            "tolerance": BWD_TOL[q.dtype], "deterministic": True,
+            "ms": timer.ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse,
+                                                           do, **kw)),
+            "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, **kw)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_train_kernels(timer: Timer, device: torch.device) -> None:
+    gen = torch.Generator(device).manual_seed(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, t, s, h, hkv, hd, causal, window, softcap in BWD_CASES:
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device=device).to(dtype)
+            q, k, v = rnd(b, t, h, hd), rnd(b, s, hkv, hd), rnd(b, s, hkv, hd)
+            do = rnd(b, t, h, hd)
+            o, lse = ops.flash_attention_fwd_res(q, k, v, causal=causal,
+                                                 window=window, softcap=softcap)
+            r = measure_bwd(timer, q, k, v, o, lse, do, causal, window, softcap)
+            log("train-kernels", f"K4 flash_attention_bwd {str(dtype)[6:]} "
+                f"B={b} T={t} S={s} H={h} Hkv={hkv} hd={hd} causal={causal} "
+                f"window={window} softcap={softcap}: {json.dumps(r)}")
+
+
+# ---------------------------------------------------------------- training
+class BwdRecorder:
+    """Keeps the first K4 call of the main path (its inputs), below the
+    counting wrapper, so the launch counts are untouched."""
+
+    def __init__(self):
+        self.call = None
+        self._bwd = fa.flash_attention_bwd
+
+    def __enter__(self):
+        def bwd(q, k, v, o, lse, do, **kw):
+            if self.call is None:
+                self.call = (q, k, v, o, lse, do, kw)
+            return self._bwd(q, k, v, o, lse, do, **kw)
+        fa.flash_attention_bwd = bwd
+        return self
+
+    def __exit__(self, *exc):
+        fa.flash_attention_bwd = self._bwd
+
+
+class SlotClock:
+    """Wall seconds of each harness slot (`mll_harness_step`), each between
+    two device synchronisations."""
+
+    def __init__(self):
+        self.seconds = []
+        self._step = harness_mod.mll_harness_step
+
+    def __enter__(self):
+        def step(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._step(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        harness_mod.mll_harness_step = step
+        return self
+
+    def __exit__(self, *exc):
+        harness_mod.mll_harness_step = self._step
+
+
+TRAIN_MLL = dict(tau=2, q=2, eta=0.05, hub_topology="ring",
+                 worker_rates=(1.0, 0.8, 1.0, 0.6), mixing="two_stage")
+
+
+def _train_loop(**kw) -> TrainLoopConfig:
+    return TrainLoopConfig(**dict(dict(
+        steps=8, eval_every=4, seq_len=128, batch_per_worker=4,
+        tokens_per_worker=8192, policy="deadline", rate_model="bernoulli",
+        impl="flash"), **kw))
+
+
+def phase_train(cfg, device: torch.device, smi: str):
+    mll = MLLConfig(**TRAIN_MLL)
+    loop = _train_loop()
+    logs = []
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with BwdRecorder() as rec, SlotClock() as clock:
+        out = run_training(cfg, mll, loop, log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "flash_attention_bwd": ops.flash_attention_bwd.launches,
+                "flash_decode": ops.flash_decode.launches}
+    for line in logs:
+        log("train", line)
+    plan, hist = out["plan"], out["history"]
+    w = out["network"].num_workers
+    grad_slots = sum(1 for s in range(plan.slots) if not (
+        plan.gate_mode == "forced" and not plan.active[s].any()))
+    n_evals = len(hist["step"])
+    want = {"flash_attention": cfg.num_layers * (w * grad_slots + n_evals),
+            "flash_attention_bwd": cfg.num_layers * w * grad_slots,
+            "flash_decode": 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if not np.isfinite(hist["avg_loss"]).all() or not np.isfinite(
+            hist["loss"]).all():
+        raise AssertionError(f"non-finite loss history {hist}")
+    secs = clock.seconds
+    seq_tokens = loop.batch_per_worker * loop.seq_len
+    counts = out["train_state"].opt_state["counts"].tolist()
+    steady = secs[1:]
+    log("train", f"plan {plan.gate_mode}: {len(plan.events)} events "
+        f"{[(e.slot, e.kind) for e in plan.events]}; counts {counts}")
+    log("train", f"u_k loss {hist['avg_loss']} at slots {hist['step']}; "
+        f"worker loss {hist['loss']}")
+    # every worker computes its gradients each slot (W*B*S processed
+    # tokens); only the gated-in ones apply them (sum(counts)*B*S applied)
+    log("train", f"seconds per slot {secs}; first slot {secs[0]} s, steady "
+        f"mean {sum(steady) / len(steady)} s; processed tokens/s per harness "
+        f"slot (W*B*S over the slot's wall) steady "
+        f"{w * seq_tokens * len(steady) / sum(steady)}; applied tokens "
+        f"{sum(counts) * seq_tokens} of {w * seq_tokens * len(secs)} "
+        f"processed; applied tokens/s over the whole run_training wall "
+        f"(data, evaluations, checkpoints included) "
+        f"{sum(counts) * seq_tokens / wall}; "
+        f"run_training wall {wall} s; peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30} GiB; launches "
+        f"{launches} on {smi}")
+    return out, mll, launches, rec
+
+
+def phase_train_profile(cfg, out, mll, device: torch.device, smi: str):
+    """Two more local slots of the trained fleet: the first timed on the
+    host clock without the profiler, the second under `torch.profiler` for
+    the device's busy time and the top device time."""
+    from torch.profiler import ProfilerActivity, profile
+    st = build_state(mll, out["network"], device=device)
+    h = harness_mod.TrainHarness(cfg, mll, st, gate_mode="bernoulli")
+    tokens = torch.randint(1, cfg.vocab_size, (4, 4, 129),
+                           generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tokens[..., :-1].to(device),
+             "labels": tokens[..., 1:].to(device)}
+    state = out["train_state"]
+    act = np.ones(4, np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = h.step(state, batch, act)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = h.step(state, batch, act)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    device_us: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us[e.name] = device_us.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    busy_ms = sum(device_us.values()) / 1e3
+    n_ops = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    log("train", f"local slot (W=4 fwd+bwd+update): wall {wall_ms} ms "
+        f"(no profiler; {prof_ms} ms under it); device busy {busy_ms} ms "
+        f"({100 * busy_ms / wall_ms}% of the wall), {n_ops} device "
+        f"operations; top: "
+        + "; ".join(f"{name[:50]} {us / 1e3} ms" for name, us in top)
+        + f" on {smi}")
+    return state
+
+
+def phase_train_parity(cfg, worker0: dict, device: torch.device) -> None:
+    """Full-width gradients of one worker on one batch, flash vs plain."""
+    tokens = torch.randint(1, cfg.vocab_size, (1, 4, 129),
+                           generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens[..., :-1].to(device),
+             "labels": tokens[..., 1:].to(device)}
+    one = tree_map(lambda x: x[None], worker0)
+    gf, mf = per_worker_grads(one, batch, cfg, impl="flash")
+    gp, mp = per_worker_grads(one, batch, cfg, impl="plain")
+    names, rel = [], []
+
+    def leaf(key, block, a, b):
+        a, b = a.float(), b.float()
+        names.append(key if block is None else f"{key}[{block}]")
+        rel.append(((a - b).norm() / b.norm().clamp(min=1e-30)).item())
+    flat_p = []
+    interop.map_with_keys(lambda k, blk, x: flat_p.append(x), gp)
+    it = iter(flat_p)
+    interop.map_with_keys(lambda k, blk, x: leaf(k, blk, x, next(it)), gf)
+    loss_diff = abs(mf["loss"].item() - mp["loss"].item())
+    order = np.argsort(rel)[::-1]
+    log("train-parity", f"one worker, 4 x 128 tokens: loss flash "
+        f"{mf['loss'].item()} plain {mp['loss'].item()} (|diff| {loss_diff});"
+        f" {len(rel)} leaves, relative grad error median "
+        f"{float(np.median(rel))} max {max(rel)}; largest: " + ", ".join(
+            f"{names[i]} {rel[i]:.4f}" for i in order[:4]))
+    if not all(np.isfinite(rel)) or max(rel) > 0.25 or np.median(rel) > 0.05 \
+            or loss_diff > 0.05:
+        raise AssertionError("flash and plain gradients disagree beyond bf16 "
+                             "noise (limits: max 0.25, median 0.05, loss 0.05)")
+
+
+def phase_serve_uk(cfg, u_k: dict, device: torch.device) -> None:
+    """The trained u_k (float32 average of the bf16 fleet) served in memory."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(32, 129)))
+               .astype(np.int32) for _ in range(4)]
+    ops.reset_launches()
+    eng = ServeEngine(u_k, cfg, EngineConfig(max_batch=4, block_size=16,
+                                            max_len=160, num_blocks=40,
+                                            impl="flash"), device=device)
+    res = eng.run(poisson_arrivals(prompts, max_new=8, rate=4.0, seed=0))
+    ok = all(len(res["outputs"][i]) == len(p) + 8 and all(
+        0 <= t < cfg.vocab_size for t in res["outputs"][i])
+        for i, p in enumerate(prompts))
+    log("uk-serve", f"u_k ({str(tree_leaves(u_k)[0].dtype)[6:]}) served "
+        f"{len(res['outputs'])} requests, {res['generated']} tokens in "
+        f"{res['wall_s']} s; launches K3 {ops.flash_attention.launches} K6 "
+        f"{ops.flash_decode.launches}")
+    if not ok or min(ops.flash_attention.launches,
+                     ops.flash_decode.launches) == 0:
+        raise AssertionError("serving the trained u_k failed")
+
+
+def phase_resume(device: torch.device) -> None:
+    cfg = get_smoke_config("qwen3-1.7b")
+    mll = MLLConfig(**dict(TRAIN_MLL, inner_opt="momentum"))
+    log("resume", f"at {cfg.name} (bf16): a full-width full-state checkpoint "
+        "of W = 4 workers is ~30 GB on disk, so kill + resume runs at the "
+        "smoke config")
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(seq_len=32, batch_per_worker=2, tokens_per_worker=2048,
+                  checkpoint_every=4, policy="barrier",
+                  rate_model="deterministic")
+        full = run_training(cfg, mll, _train_loop(
+            checkpoint_dir=f"{tmp}/a", **kw), log=lambda *a: None)
+        run_training(cfg, mll, _train_loop(checkpoint_dir=f"{tmp}/b",
+                                           stop_slot=4, **kw),
+                     log=lambda *a: None)
+        res = run_training(cfg, mll, _train_loop(checkpoint_dir=f"{tmp}/b",
+                                                 resume=True, **kw),
+                           log=lambda *a: None)
+        la, lb = (tree_leaves(x["train_state"]) for x in (full, res))
+        same = len(la) == len(lb) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb))
+        log("resume", f"killed at slot 4 + resumed vs uninterrupted: "
+            f"{len(la)} state leaves, all equal bit for bit: {same}; u_k "
+            f"loss {res['history']['avg_loss']} vs "
+            f"{full['history']['avg_loss'][-1:]}")
+        if not same or res["history"]["avg_loss"] != \
+                full["history"]["avg_loss"][-1:]:
+            raise AssertionError("resume is not the uninterrupted run")
+        eng = ServeEngine.from_checkpoint(
+            f"{tmp}/b", cfg, EngineConfig(max_batch=2, block_size=8,
+                                          num_blocks=16, max_len=48),
+            device=device)
+        prompts = [np.arange(1, 9, dtype=np.int32),
+                   np.arange(20, 33, dtype=np.int32)]
+        out = eng.run(poisson_arrivals(prompts, max_new=6, seed=0))
+        if sorted(out["outputs"]) != [0, 1]:
+            raise AssertionError("from_checkpoint did not serve")
+        log("resume", f"ServeEngine.from_checkpoint served {out['generated']}"
+            f" tokens for {len(prompts)} requests")
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -493,15 +856,46 @@ def main() -> int:
                         kw["softcap"])
     log("report", f"K6 at the main path's busiest decode tick, lengths "
         f"{lengths.tolist()} pools {tuple(kp.shape)}: {json.dumps(k6)}")
+    del params, reqs, out, rec, q, k, v, kp, vp, tables, lengths
+    torch.cuda.empty_cache()
+
+    phase_train_kernels(timer, device)
+    trained, mll, train_launches, bwd_rec = phase_train(cfg, device, smi)
+    state = phase_train_profile(cfg, trained, mll, device, smi)
+    worker0 = tree_map(lambda x: x[0].clone(), state.params)
+    u_k = trained["avg_params"]
+    del trained, state
+    torch.cuda.empty_cache()
+    phase_train_parity(cfg, worker0, device)
+    del worker0
+    torch.cuda.empty_cache()
+    phase_serve_uk(cfg, u_k, device)
+    del u_k
+    torch.cuda.empty_cache()
+    phase_resume(device)
+
+    q, k, v, o, lse, do, kw = bwd_rec.call
+    k4 = measure_bwd(timer, q, k, v, o, lse, do, kw["causal"], kw["window"],
+                     kw["softcap"])
+    log("report", f"K4 at the training path's shapes q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} {str(q.dtype)[6:]}: {json.dumps(k4)}")
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_attention.py:148",
-             launches=launches["flash_attention"], **k3),
+             launches=launches["flash_attention"]
+             + train_launches["flash_attention"],
+             launches_by_path={"serve": launches["flash_attention"],
+                               "train": train_launches["flash_attention"]},
+             **k3),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_attention.py:282",
              launches=launches["flash_decode"], **k6),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:473",
+             launches=train_launches["flash_attention_bwd"], **k4),
     ]
     log("report", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,20 +1,23 @@
 """Launches of the hand-written CUDA attention kernels.
 
-Counterpart of `repro/kernels/flash_attention.py`, forward and decode only:
+Counterpart of `repro/kernels/flash_attention.py`:
 
 * `flash_attention_fwd_res` launches ``csrc/flash_fwd.cu`` (replaces
   `_fwd_kernel` / `flash_attention_fwd_res`, the TPU flash-attention
   forward);
+* `flash_attention_bwd` launches ``csrc/flash_bwd.cu`` (replaces
+  `_bwd_dq_kernel` / `_bwd_dkv_kernel` behind `flash_attention_bwd`, the
+  TPU recomputation backward; ``delta = rowsum(do * o)`` is one torch
+  expression here, as the TPU wrapper computes it outside Pallas);
 * `flash_decode_paged` launches ``csrc/flash_decode.cu`` (replaces
   `_decode_kernel` / `flash_decode_paged` and its split combine).
 
-Both take CUDA tensors only and raise on anything the kernels do not take:
+All take CUDA tensors only and raise on anything the kernels do not take:
 another device, dtype or head_dim, a shape that does not fit, a tensor that
 is not contiguous.  Outputs and scratch are allocated here with
 ``torch.empty``; the kernels launch on PyTorch's current stream and do not
 synchronise.  The wrappers in `ops` choose between these and the plain
-versions in `ref` by the tensors' device.  The backward kernel (K4,
-`flash_attention_bwd`) is not ported yet.
+versions in `ref` by the tensors' device.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ MAX_GROUP = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 
@@ -91,6 +96,41 @@ def flash_attention_fwd_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              _stream(q.device))
     _raise_on_error(what, err)
     return o, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q/o/do: (B, T, H, hd), k/v: (B, S, Hkv, hd), lse: (B, H, T) float32,
+    all on one CUDA device -> (dq, dk, dv) in the primal shapes and dtypes
+    (dk/dv summed over the GQA group)."""
+    what = "flash_attention_bwd (csrc/flash_bwd.cu)"
+    _check(what, q.is_cuda, "q must be a CUDA tensor")
+    _check_tensors(what, q.device, q=q, k=k, v=v, o=o, lse=lse, do=do)
+    _check_float(what, q, k, v, o, do)
+    _check(what, q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+           and o.shape == q.shape and do.shape == q.shape,
+           f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+           f"{tuple(v.shape)}, o {tuple(o.shape)}, do {tuple(do.shape)}")
+    b, t, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    _check(what, k.shape[0] == b and k.shape[3] == hd and hkv > 0
+           and h % hkv == 0, "k/v must be (B, S, Hkv, hd) with H % Hkv == 0")
+    _check(what, lse.dtype == torch.float32 and lse.shape == (b, h, t),
+           f"lse must be float32 (B, H, T), got {lse.dtype} {tuple(lse.shape)}")
+    # the TPU wrapper's preprocess: delta_i = sum_d do_id * o_id in float32
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = build.load("flash_bwd", "flash_bwd", _BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), b, t, s, h, hkv, hd, DTYPE_CODES[q.dtype],
+             int(causal), int(window), float(softcap), 1.0 / math.sqrt(hd),
+             _stream(q.device))
+    _raise_on_error(what, err)
+    return dq, dk, dv
 
 
 def default_num_splits(num_splits: int, max_blocks: int) -> int:

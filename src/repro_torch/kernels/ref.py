@@ -64,6 +64,49 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    softcap=softcap)[0]
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Recomputation backward with the kernel's arithmetic: q pre-scaled,
+    p = exp(s - lse) on live entries, ds = p (dp - delta) with the softcap
+    chain rule, delta = rowsum(do * o) in float32.  q/o/do (B, T, H, hd),
+    k/v (B, S, Hkv, hd), lse (B, H, T) -> (dq, dk, dv) in the primal dtypes,
+    dk/dv summed over the GQA group."""
+    b, t, h, hd = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(b, t, hkv, group, hd) * scale
+    dog = do.float().reshape(b, t, hkv, group, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bthgk,bshk->bhgts", qg, kf)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s_len, device=q.device)[None, :]
+    mask = torch.ones(t, s_len, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    lse_g = lse.float().reshape(b, hkv, group, t)[..., None]
+    p = torch.where(mask, torch.exp(torch.where(mask, s - lse_g, 0.0)), 0.0)
+    dp = torch.einsum("bthgk,bshk->bhgts", dog, vf)
+    delta = (do.float() * o.float()).sum(-1)                   # (B, T, H)
+    delta = delta.permute(0, 2, 1).reshape(b, hkv, group, t)[..., None]
+    ds = p * (dp - delta)
+    if softcap > 0:
+        ds = ds * (1.0 - (s / softcap) ** 2)
+    dq = torch.einsum("bhgts,bshk->bthgk", ds, kf) * scale
+    dk = torch.einsum("bhgts,bthgk->bshk", ds, qg)
+    dv = torch.einsum("bhgts,bthgk->bshk", p, dog)
+    return (dq.reshape(b, t, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def flash_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
                      lengths: torch.Tensor, *, window: int = 0,

@@ -32,6 +32,22 @@ def init_model(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose tensors the initialisers place on the meta device
+    (they allocate on ``gen.device``): shapes and dtypes, no memory, no
+    draws."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_skeleton(cfg: ArchConfig) -> dict:
+    """`init_model`'s tree as meta tensors: the structure, shapes and dtypes
+    a checkpoint restores into, without allocating or drawing."""
+    return init_model(_MetaGenerator(), cfg, device="meta")
+
+
 def _require_tokens(cfg: ArchConfig, what: str) -> None:
     if cfg.input_mode != "tokens":
         raise NotImplementedError(
@@ -50,8 +66,8 @@ def _positions(batch: dict, cfg: ArchConfig, b: int, s: int,
 def forward_train(params: dict, batch: dict, cfg: ArchConfig, *,
                   impl: str = "flash") -> tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B, S) int} -> (logits (B, S, vocab), aux loss).
-    Forward only with ``impl="flash"`` on CUDA (the backward kernel is not
-    ported)."""
+    Differentiable with either impl; ``impl="flash"`` trains attention
+    through the flash-attention forward and backward kernels."""
     _require_tokens(cfg, "forward_train")
     x = embed_tokens(params["embed"], batch["tokens"], cfg)
     b, s, _ = x.shape

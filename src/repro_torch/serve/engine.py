@@ -19,13 +19,14 @@ Each engine step is one SLOT: one prefill batch or one decode tick.
 `ServeEngine.trace` emits the ``mll-timeline-trace/v1`` document the JAX
 package's timeline tooling reads (`repro.core.timeline.load_trace`).
 
-The engine takes params directly; serving from a training checkpoint
-(`load_u_k` / `from_checkpoint`) waits for the checkpoint port.
+The engine serves the merged model u_k: pass params directly, or serve a
+harness checkpoint directory (`load_u_k`, `ServeEngine.from_checkpoint`).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Any
 
@@ -34,11 +35,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import protocol
+from repro_torch.core.mllsgd import MLLConfig, build_network
+from repro_torch.core.simulator import weighted_average
+from repro_torch.core.timeline import TRACE_SCHEMA
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_mod
 from repro_torch.serve import kv_cache as kvc
+from repro_torch.train import checkpoint
+from repro_torch.tree import tree_map
 
-TRACE_SCHEMA = "mll-timeline-trace/v1"   # = repro.core.timeline.TRACE_SCHEMA
 PROMPT_PAD = 16                          # prompts pad to a multiple of this
 
 
@@ -63,6 +69,51 @@ def poisson_arrivals(prompts: list[np.ndarray], *, max_new: int = 16,
     return [Request(rid=i, prompt=np.asarray(p, np.int32),
                     max_new=max_new, arrival=int(a))
             for i, (p, a) in enumerate(zip(prompts, arrivals))]
+
+
+# ---------------------------------------------------------------- u_k loader
+def load_u_k(path: str, cfg: ArchConfig,
+             device: str | torch.device | None = None) -> dict:
+    """The averaged model u_k from a harness checkpoint directory, written
+    by either package, on ``device`` (default ``cuda``).
+
+    Preferred source is the full protocol checkpoint (`restore_state`): its
+    ``plan_config`` rebuilds the MLLConfig and network the run trained
+    under, the per-worker params are restored, and u_k = X a is recomputed
+    with the network's weights.  Falls back to the root params checkpoint
+    for directories written without ``save_state``."""
+    device = resolve_device(device)
+    skeleton = model_mod.param_skeleton(cfg)
+    state_manifest = os.path.join(checkpoint.state_dir(path), "manifest.json")
+    if not os.path.exists(state_manifest):
+        return checkpoint.restore(path, skeleton, device=device)[0]
+    extra = checkpoint.load_manifest(checkpoint.state_dir(path)).get(
+        "extra", {})
+    pcfg = extra.get("plan_config")
+    if pcfg is None:
+        raise ValueError(
+            f"{path}: full-protocol checkpoint carries no plan_config -- "
+            "cannot rebuild the network's averaging weights")
+    mll = MLLConfig(
+        tau=int(pcfg["tau"]), q=int(pcfg["q"]), eta=float(pcfg["eta"]),
+        granularity="worker_per_data", hub_topology=pcfg["hub_topology"],
+        worker_rates=tuple(float(r) for r in pcfg["worker_rates"]),
+        mixing=pcfg["mixing"], mix_dtype=pcfg["mix_dtype"],
+        inner_opt=pcfg["inner_opt"],
+        inner_opt_args=tuple(tuple(kv) for kv in pcfg["inner_opt_args"]),
+        seed=int(pcfg["seed"]))
+    wps = [int(n) for n in pcfg["workers_per_subnet"]]
+    network = build_network(mll, len(wps), wps[0])
+    w = network.num_workers
+    # restore reads only the meta skeleton's shapes and dtypes
+    stacked = tree_map(
+        lambda x: x.unsqueeze(0).expand((w,) + tuple(x.shape)), skeleton)
+    like = protocol.init_train_state(stacked, cfg=mll)
+    train_state, _, _ = checkpoint.restore_state(path, like, device=device)
+    return weighted_average(train_state.params,
+                            torch.as_tensor(np.asarray(network.a),
+                                            dtype=torch.float32,
+                                            device=device))
 
 
 # ------------------------------------------------------------------- engine
@@ -320,3 +371,12 @@ class ServeEngine:
         with open(path, "w") as f:
             json.dump(self.trace(**meta), f, indent=2)
         return path
+
+    # ---------------------------------------------------------- constructors
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: ArchConfig,
+                        ecfg: EngineConfig = EngineConfig(),
+                        device: str | torch.device | None = None
+                        ) -> "ServeEngine":
+        """An engine serving the averaged u_k of a harness checkpoint."""
+        return cls(load_u_k(path, cfg, device), cfg, ecfg, device=device)

@@ -20,6 +20,24 @@ def _port_modules():
         m.name for m in pkgutil.walk_packages([str(PORT)], "repro_torch.")]
 
 
+SLICE_MODULES = (  # the serving slice and the trainer slice
+    "repro_torch.serve.engine", "repro_torch.kernels.ops",
+    "repro_torch.core.topology", "repro_torch.core.hierarchy",
+    "repro_torch.core.prng", "repro_torch.core.protocol",
+    "repro_torch.core.mllsgd", "repro_torch.core.simulator",
+    "repro_torch.core.timeline", "repro_torch.optim.optimizers",
+    "repro_torch.data.pipeline", "repro_torch.train.train_step",
+    "repro_torch.train.checkpoint", "repro_torch.launch.harness",
+    "repro_torch.launch.train", "repro_torch.interop", "repro_torch.tree")
+
+
+def test_every_module_of_the_port_is_checked():
+    """The import checks below walk the whole package, the trainer's
+    modules included."""
+    found = set(_port_modules())
+    assert set(SLICE_MODULES) <= found, sorted(set(SLICE_MODULES) - found)
+
+
 def test_importing_the_port_and_chip_smoke_loads_no_jax():
     code = (
         "import importlib, importlib.util, sys\n"

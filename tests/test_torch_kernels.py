@@ -11,15 +11,22 @@ kernel-vs-oracle bound.  The two sides sum in another order, and the kernel
 scales q before the dot where the oracle divides the logits after, so they
 agree to rounding, not bit for bit.
 
+The backward is held the same way: the port's plain recomputation backward
+and autograd through `ops.flash_attention` against the JAX Pallas backward
+(`flash_attention_bwd`, interpret mode) and `jax.grad` through the JAX
+`ops.flash_attention` custom VJP, at the same 2e-5.
+
 The CUDA kernels themselves are held against their plain versions in
 `test_torch_cuda.py`.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import flash_attention as jfa
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
@@ -88,6 +95,74 @@ def test_flash_attention_matches_jax_kernel(b, t, s, h, hkv, hd, causal,
     assert got_o.dtype == torch.float32 and got_lse.shape == (b, h, t)
 
 
+BWD_CASES = [
+    # (b, t, s, h, hkv, hd, causal, window, softcap)
+    (1, 40, 40, 4, 2, 64, True, 0, 0.0),        # GQA group 2, head_dim 64
+    (1, 70, 70, 4, 1, 64, True, 16, 0.0),       # group 4, window
+    (1, 50, 50, 2, 1, 128, True, 0, 30.0),      # softcap, head_dim 128
+    (1, 33, 48, 4, 2, 128, False, 0, 0.0),      # non-causal, T != S
+]
+
+
+def _bwd_inputs(b, t, s, h, hkv, hd):
+    q, k, v = _qkv(7 * t + hd, b, t, s, h, hkv, hd)
+    do = np.random.default_rng(t + s).standard_normal((b, t, h, hd),
+                                                      np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b,t,s,h,hkv,hd,causal,window,softcap", BWD_CASES)
+def test_flash_attention_bwd_matches_jax_kernel(b, t, s, h, hkv, hd, causal,
+                                                window, softcap):
+    """dq, dk, dv of the port's flash_attention_bwd (plain version on CPU)
+    against the JAX Pallas backward kernels in interpret mode, both from
+    the JAX forward's (o, lse)."""
+    q, k, v, do = _bwd_inputs(b, t, s, h, hkv, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = jfa.flash_attention_fwd_res(*map(jnp.asarray, (q, k, v)),
+                                         interpret=True, **kw)
+    want = jfa.flash_attention_bwd(*map(jnp.asarray, (q, k, v)), o, lse,
+                                   jnp.asarray(do), interpret=True, **kw)
+    got = tops.flash_attention_bwd(*_t(q, k, v, np.asarray(o),
+                                       np.asarray(lse), do), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("b,t,s,h,hkv,hd,causal,window,softcap", BWD_CASES)
+def test_autograd_matches_jax_grad(b, t, s, h, hkv, hd, causal, window,
+                                   softcap):
+    """Gradients through the port's `ops.flash_attention` autograd Function
+    against `jax.grad` through the JAX custom VJP (Pallas forward and
+    backward in interpret mode) of sum(o * do)."""
+    q, k, v, do = _bwd_inputs(b, t, s, h, hkv, hd)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jops.flash_attention(q_, k_, v_, causal, window,
+                                            softcap) * jnp.asarray(do))
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [x.requires_grad_() for x in _t(q, k, v)]
+    tops.reset_launches()
+    out = tops.flash_attention(*leaves, causal=causal, window=window,
+                               softcap=softcap)
+    (out * torch.from_numpy(do)).sum().backward()
+    assert tops.flash_attention_bwd.launches == 0       # CPU: plain versions
+    for x, w in zip(leaves, want):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), **TOL)
+
+
+def test_fwd_res_refuses_to_record_gradients():
+    """`flash_attention_fwd_res` is not differentiable (nor is the JAX one):
+    on inputs that require grad it raises instead of returning an output
+    that silently drops the attention gradient."""
+    q, k, v = [x.requires_grad_() for x in _t(*_qkv(2, 1, 8, 8, 2, 1, 64))]
+    with pytest.raises(ValueError, match="flash_attention to differentiate"):
+        tops.flash_attention_fwd_res(q, k, v)
+    with torch.no_grad():
+        tops.flash_attention_fwd_res(q, k, v)
+
+
 DECODE_CASES = [
     # (lengths, hkv, group, hd, bs, nmax, window, softcap, num_splits)
     ([41, 17, 0, 1], 2, 2, 64, 8, 6, 0, 0.0, 0),      # ragged incl. 0 and 1
@@ -143,7 +218,11 @@ def test_cpu_wrappers_launch_nothing():
     tops.reset_launches()
     tops.flash_attention(*_t(*_qkv(1, 1, 8, 8, 2, 1, 16)))
     tops.flash_decode(*_t(*_paged(1, [5], 1, 2, 16, 4, 2)))
+    q, k, v = _t(*_qkv(1, 1, 8, 8, 2, 1, 16))
+    o, lse = tops.flash_attention_fwd_res(q, k, v)
+    tops.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q))
     assert tops.flash_attention.launches == 0 == tops.flash_decode.launches
+    assert tops.flash_attention_bwd.launches == 0
 
 
 def test_cuda_launch_rejects_cpu_tensors():
@@ -153,6 +232,9 @@ def test_cuda_launch_rejects_cpu_tensors():
         tfa.flash_attention_fwd_res(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_decode_paged(*_t(*_paged(1, [5], 1, 2, 64, 4, 2)))
+    o, lse = tops.flash_attention_fwd_res(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q))
 
 
 def test_num_splits_semantics():

@@ -23,6 +23,7 @@ from repro.models import model as jmodel
 from repro_torch import interop
 from repro_torch.configs.registry import get_smoke_config as torch_smoke
 from repro_torch.models import model as tmodel
+from repro_torch.tree import tree_leaves
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["qwen3-1.7b", "qwen2-0.5b"]
@@ -158,3 +159,14 @@ def test_unported_blocks_raise():
     tcfg = torch_smoke("jamba-v0.1-52b")
     with pytest.raises(NotImplementedError, match="Other architectures"):
         tmodel.init_model(torch.Generator(), tcfg, device="cpu")
+
+
+def test_param_skeleton_is_init_model_without_memory():
+    """`param_skeleton` (what `load_u_k` restores into) has `init_model`'s
+    keys, shapes and dtypes, on the meta device."""
+    _, tcfg = _cfgs("qwen3-1.7b")
+    params = tmodel.init_model(torch.Generator().manual_seed(0), tcfg,
+                               device="cpu")
+    skeleton = tmodel.param_skeleton(tcfg)
+    assert interop.leaf_spec(skeleton) == interop.leaf_spec(params)
+    assert {x.device.type for x in tree_leaves(skeleton)} == {"meta"}
