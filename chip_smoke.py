@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""The PyTorch port on one NVIDIA GPU: build, check, serve and train.
+"""The PyTorch port on one NVIDIA GPU: build, check, serve, train and
+simulate.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -37,7 +38,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 10. resume -- at the smoke config (a full-width full-state checkpoint is
    ~30 GB on disk): killed at slot 4 and resumed = the uninterrupted run,
    bit for bit; `ServeEngine.from_checkpoint` serves that directory.
-11. report -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
+11. sim-kernels -- the fused update + mix kernel (``csrc/hier_mix.cu``):
+   K1a (one leaf), K1b (packed, dense), K2 (packed, grouped) and K5
+   (chunked) against their plain versions, bit for bit, at awkward shapes,
+   bf16 leaves and the paper's W = 100, then at the packed qwen2-0.5b
+   fleet of phase 12 (W = 4, 494 M float32 columns); times beside the
+   bound, the plain version and the unfused torch pair.
+12. sim -- qwen2-0.5b at full width (24 layers, float32 params, bf16
+   compute, seeded random weights) as W = 4 workers through
+   `timeline.run_timeline`: (a) deadline + two_stage (K2), (b) barrier +
+   dense (K1b), (c) gossip (K1b, masked operators), (d) = (a) with
+   chunked overlap (K5, the same u bit for bit), (e) = (a) with
+   kernel="xla", (f) (b)'s plan through the full scan, packed (K1b every
+   slot) and per leaf (K1a), the same u as (b) bit for bit; the launch
+   counts asserted from each plan; slot times, an event split into pack /
+   kernel / unpack, the device busy share of an event slot.
+13. sim-paper -- the paper's logistic regression at W = 100 in 10
+   sub-networks through `simulate` (K1b) and `run_timeline` with two_stage
+   mixing (K2 at D = 10), kernel="pallas" against kernel="xla".
+14. report -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or away from the repository, it exits non-zero and prints no
@@ -60,15 +79,25 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import baselines, packing, protocol  # noqa: E402
+from repro_torch.core import timeline as ttl  # noqa: E402
+from repro_torch.core.hierarchy import MultiLevelNetwork  # noqa: E402
 from repro_torch.core.mllsgd import MLLConfig, build_state  # noqa: E402
+from repro_torch.core.simulator import (SimConfig, init_sim_carry,  # noqa: E402
+                                        replicate, simulate, to_device,
+                                        weighted_average)
+from repro_torch.data.pipeline import (make_classification,  # noqa: E402
+                                       make_token_stream)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import hier_mix as hm  # noqa: E402
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.serve.engine import (PROMPT_PAD, EngineConfig,  # noqa: E402
                                       ServeEngine, poisson_arrivals)
+from repro_torch.train.train_step import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.train.train_step import per_worker_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -816,6 +845,545 @@ def phase_resume(device: torch.device) -> None:
             f" tokens for {len(prompts)} requests")
 
 
+# ------------------------------------------------ K1/K2/K5 measurement
+# The fused update + mix kernel and its plain version share one arithmetic
+# (products and sums rounded one by one, in one order), so they are held
+# equal bit for bit; so are packed and per-leaf launches and chunked and
+# single launches.
+SIM_EXACT = dict(atol=0.0, rtol=0.0)
+SIM_ETA = 0.05
+SIM_NET = dict(topology="ring", workers_per_subnet=[2, 2], tau=2, q=2,
+               worker_rates=(1.0, 0.8, 1.0, 0.6))
+SIM_SLOTS, SIM_CHUNKS = 8, 4
+# (e) kernel="xla" against kernel="pallas": the two mix in other orders, so
+# u differs by float32 rounding at each event; the bf16 forward can turn a
+# 1-ulp float32 difference of a parameter into a bf16-sized difference of
+# its gradient, so the runs are held to the update they made: ||u_e - u_a||
+# within 1e-2 of ||u_a - u_0|| (a wrong kernel differs by ~100%).
+SIM_XLA_REL = 1e-2
+# paper-scale runs, pallas against xla: float32 sums of W = 100 terms in
+# two orders over the run (a wrong kernel moves the loss by >= 1e-2)
+PAPER_TOL = 1e-4
+
+
+def _exact(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel and plain version differ, "
+                             f"max abs err {err}")
+    return err
+
+
+def _mix_bound(w: int, c: int, d: int, grouped: bool, hub: bool,
+               es: int) -> tuple[float, str]:
+    """x and g read once, out written once (element size ``es``), the
+    operators and theta once; float32 operations per column: the update
+    (2 W) and the contraction (2 W^2, or 4 W D + 2 D^2)."""
+    op = (2 * w * d + (d * d if hub else 0)) if grouped else w * w
+    bytes_ = 3 * es * w * c + 4 * (op + w)
+    per_col = 2 * w + ((4 * w * d + (2 * d * d if hub else 0)) if grouped
+                       else 2 * w * w)
+    return _bound(bytes_, per_col * c, torch.float32)
+
+
+def measure_mix(timer: Timer, x, g, op, theta, kind: str,
+                chunks: int = SIM_CHUNKS) -> dict:
+    """K1a (one leaf), K1b / K2 (the packed buffer of a one-leaf tree, a
+    view: no pack copy) or K5 (its chunked launches) on (W, C) inputs,
+    against the plain version: error, times, bound, and the unfused torch
+    pair (update, then one cuBLAS product with the dense operator)."""
+    grouped = isinstance(op, hm.GroupedOperator)
+    if kind == "K1a":
+        def run():
+            return ops.hier_mix(x, g, op, theta, SIM_ETA)
+    elif kind == "K5":
+        def run():
+            return ops.hier_mix_packed_chunked(
+                {"x": x}, {"x": g}, op, theta, SIM_ETA,
+                num_chunks=chunks)["x"]
+    else:
+        def run():
+            return ops.hier_mix_packed({"x": x}, {"x": g}, op, theta,
+                                       SIM_ETA)["x"]
+
+    def plain():
+        if grouped:
+            return ref.hier_mix_grouped_ref(x, g, op.scatter, op.broadcast,
+                                            op.hub, theta, SIM_ETA)
+        return ref.hier_mix_ref(x, g, op, theta, SIM_ETA)
+    w, c = x.shape
+    got = run()
+    err = _exact(got, plain(), f"{kind} W={w} C={c}")
+    del got
+    if grouped:
+        h = op.hub if op.hub is not None else torch.eye(
+            op.scatter.shape[0], device=x.device)
+        dense_t = (op.broadcast @ h.t() @ op.scatter).t().contiguous()
+    else:
+        dense_t = op
+    a = theta * SIM_ETA
+
+    def library():       # two calls and a product: no single torch call
+        return torch.mm(dense_t.t(), x - a[:, None] * g)
+    d = op.scatter.shape[0] if grouped else 0
+    bound_ms, bound_by = _mix_bound(
+        w, c, d, grouped, grouped and op.hub is not None, x.element_size())
+    reps = 5 if x.numel() > 1e8 else 20
+    return {"max_abs_err": err, "tolerance": SIM_EXACT,
+            "ms": timer.ms(run, reps), "plain_ms": timer.ms(plain, reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": timer.ms(library, reps) if x.dtype ==
+            torch.float32 else None,
+            "library": "two calls: x - (eta*theta)*g, then torch.mm with "
+                       "the dense operator"}
+
+
+def _grouped_op(w: int, d: int, hub: bool, device) -> hm.GroupedOperator:
+    net = MultiLevelNetwork.build("ring", [w // d] * d)
+    return hm.make_grouped_operator(net.subnet_of, net.v,
+                                    net.hub_net.h if hub else None,
+                                    device=device)
+
+
+def qwen2_packed_cols() -> tuple[int, int]:
+    """(total packed columns, largest leaf) of qwen2-0.5b, from the meta
+    skeleton (no memory)."""
+    sizes = [x.numel() for x in tree_leaves(
+        model_mod.param_skeleton(get_config("qwen2-0.5b")))]
+    return sum(sizes), max(sizes)
+
+
+def phase_sim_kernels(timer: Timer, device: torch.device, smi: str) -> dict:
+    """K1a / K1b / K2 / K5 against their plain versions: small and awkward
+    shapes, the paper's W = 100 (D = 10), bf16 leaves, then the qwen2-0.5b
+    packed fleet of the sim phase (W = 4 float32).  -> the measurements at
+    the main path's shapes, for the report."""
+    gen = torch.Generator(device).manual_seed(4)
+
+    def inputs(w, c, dtype=torch.float32):
+        x = torch.randn(w, c, generator=gen, device=device).to(dtype)
+        gr = torch.randn(w, c, generator=gen, device=device).to(dtype)
+        t = torch.rand(w, w, generator=gen, device=device)
+        theta = (torch.rand(w, generator=gen, device=device) > 0.3).float()
+        return x, gr, t / t.sum(0, keepdim=True), theta
+
+    for w, c, dtype in ((4, 1, torch.float32), (4, 301, torch.float32),
+                        (13, 4101, torch.bfloat16), (100, 200, torch.float32),
+                        (100, 100_003, torch.float32)):
+        x, gr, t, theta = inputs(w, c, dtype)
+        r = measure_mix(timer, x, gr, t, theta, "K1a")
+        log("sim-kernels", f"K1a dense W={w} C={c} {str(dtype)[6:]}: "
+            f"{json.dumps(r)}")
+        if dtype == torch.float32:
+            for kind in ("K1b", "K5"):
+                r = measure_mix(timer, x, gr, t, theta, kind, chunks=3)
+                log("sim-kernels", f"{kind} dense W={w} C={c}: "
+                    f"{json.dumps(r)}")
+    for w, d, hub in ((4, 2, False), (4, 2, True), (100, 10, True)):
+        x, gr, _, theta = inputs(w, 100_003)
+        op = _grouped_op(w, d, hub, device)
+        for kind in ("K2", "K5"):
+            r = measure_mix(timer, x, gr, op, theta, kind, chunks=3)
+            log("sim-kernels", f"{kind} grouped W={w} D={d} hub={hub} "
+                f"C=100003: {json.dumps(r)}")
+    # packed = per leaf on a mixed tree
+    tree = {"a": torch.randn(4, 37, 11, generator=gen, device=device),
+            "b": torch.randn(4, generator=gen, device=device),
+            "h": torch.randn(4, 300, generator=gen,
+                             device=device).to(torch.bfloat16)}
+    grads = tree_map(lambda v: torch.randn(v.shape, generator=gen,
+                                           device=device).to(v.dtype), tree)
+    t, theta = inputs(4, 1)[2:]
+    packed = ops.hier_mix_packed(tree, grads, t, theta, SIM_ETA)
+    perleaf = ops.hier_mix_pytree(tree, grads, t, theta, SIM_ETA)
+    for k in tree:
+        _exact(packed[k], perleaf[k], f"packed vs per-leaf, leaf {k}")
+    log("sim-kernels", "packed (K1b) = per-leaf (K1a) bit for bit on a "
+        "float32 + bf16 + (W,) tree")
+
+    # the main path's shapes: the packed qwen2-0.5b fleet, W = 4 float32
+    total, largest = qwen2_packed_cols()
+    out = {}
+    x, gr = (torch.randn(4, total, generator=gen, device=device)
+             for _ in range(2))
+    theta = torch.tensor([1.0, 0.0, 1.0, 1.0], device=device)
+    net = MultiLevelNetwork.build(SIM_NET["topology"],
+                                  SIM_NET["workers_per_subnet"])
+    z_op = torch.as_tensor(net.z_matrix(), dtype=torch.float32,
+                           device=device)
+    shapes = f"W=4 C={total} float32 on {smi}"
+    out["K1b"] = measure_mix(timer, x, gr, z_op, theta, "K1b")
+    log("sim-kernels", f"K1b dense (Z) at the packed qwen2-0.5b fleet "
+        f"{shapes}: {json.dumps(out['K1b'])}")
+    grouped = _grouped_op(4, 2, True, device)
+    out["K2"] = measure_mix(timer, x, gr, grouped, theta, "K2")
+    log("sim-kernels", f"K2 grouped (two_stage hub) at the packed fleet "
+        f"{shapes}: {json.dumps(out['K2'])}")
+    out["K5"] = measure_mix(timer, x, gr, grouped, theta, "K5")
+    single = ops.hier_mix_packed({"x": x}, {"x": gr}, grouped, theta,
+                                 SIM_ETA)["x"]
+    chunked = ops.hier_mix_packed_chunked({"x": x}, {"x": gr}, grouped,
+                                          theta, SIM_ETA,
+                                          num_chunks=SIM_CHUNKS)["x"]
+    _exact(chunked, single, "K5 (4 chunks) vs one K2 launch")
+    del single, chunked
+    log("sim-kernels", f"K5 grouped, {SIM_CHUNKS} chunks, at the packed "
+        f"fleet {shapes} (= one K2 launch bit for bit): "
+        f"{json.dumps(out['K5'])}")
+    del x, gr
+    x, gr = (torch.randn(4, largest, generator=gen, device=device)
+             for _ in range(2))
+    out["K1a"] = measure_mix(timer, x, gr, z_op, theta, "K1a")
+    log("sim-kernels", f"K1a dense at qwen2-0.5b's largest leaf (the "
+        f"embedding, W=4 C={largest} float32) on {smi}: "
+        f"{json.dumps(out['K1a'])}")
+    del x, gr
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------- simulator path
+def mix_launches() -> dict:
+    """Launches of K1a / K1b / K2 / K5 since the last reset."""
+    packed, chunked = ops.hier_mix_packed, ops.hier_mix_packed_chunked
+    return {"K1a": ops.hier_mix.launches + ops.hier_mix_pytree.launches,
+            "K1b": packed.launches - packed.grouped_launches,
+            "K2": packed.grouped_launches, "K5": chunked.launches,
+            "K3": ops.flash_attention.launches,
+            "K4": ops.flash_attention_bwd.launches}
+
+
+class ExecClock:
+    """Host seconds of the event executor's local segments (per slot) and
+    event slots, each between two device synchronisations."""
+
+    def __init__(self):
+        self.local, self.event = [], []
+        self._scan, self._step = ttl.EventExecutor.scan_local, \
+            ttl.EventExecutor._step
+
+    def __enter__(self):
+        clock = self
+
+        def scan(ex, carry, data, active):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = clock._scan(ex, carry, data, active)
+            torch.cuda.synchronize()
+            clock.local.append((time.perf_counter() - t0) / len(active))
+            return out
+
+        def step(ex, carry, data, act, op):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = clock._step(ex, carry, data, act, op)
+            torch.cuda.synchronize()
+            clock.event.append(time.perf_counter() - t0)
+            return out
+        ttl.EventExecutor.scan_local, ttl.EventExecutor._step = scan, step
+        return self
+
+    def __exit__(self, *exc):
+        ttl.EventExecutor.scan_local, ttl.EventExecutor._step = \
+            self._scan, self._step
+
+
+def lm_task(cfg, device):
+    """The transformer as a simulator task: the token cross-entropy through
+    ``impl="flash"`` (K3 forward, K4 backward) and next-token accuracy."""
+    stream = make_token_stream(4, 65 * 129, vocab_size=cfg.vocab_size,
+                               seed=0).astype(np.int64)
+    worker_data = {"tokens": torch.from_numpy(
+        stream[:, :64 * 129].reshape(4, 64, 129))}
+    eval_data = {"tokens": torch.from_numpy(stream[:, 64 * 129:])}
+
+    def loss_fn(p, b):
+        t = b["tokens"]
+        return train_loss_fn(p, {"tokens": t[:, :-1], "labels": t[:, 1:]},
+                             cfg, impl="flash")[0]
+
+    def acc_fn(p, b):
+        t = b["tokens"]
+        logits, _ = model_mod.forward_train(p, {"tokens": t[:, :-1]}, cfg,
+                                            impl="flash")
+        return (logits.argmax(-1) == t[:, 1:]).float().mean()
+    return loss_fn, acc_fn, worker_data, eval_data
+
+
+def _u_diff(a: dict, b: dict) -> float:
+    return max((x - y).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _u_norm(a: dict, b: dict) -> float:
+    return float(sum(((x - y).float() ** 2).sum().item()
+                     for x, y in zip(tree_leaves(a), tree_leaves(b))) ** 0.5)
+
+
+def phase_sim(device: torch.device, smi: str) -> dict:
+    """qwen2-0.5b at full width through `run_timeline`: runs (a)-(f) of the
+    simulator path, with the launch counts asserted from each plan."""
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = tree_map(lambda x: x.float(), model_mod.init_model(
+        torch.Generator(device).manual_seed(0), cfg, device=device))
+    torch.cuda.synchronize()
+    spec = packing.pack_spec(replicate_meta(params, 4))
+    loss_fn, acc_fn, worker_data, eval_data = lm_task(cfg, device)
+    net, sched = baselines.mll_sgd(SIM_NET["topology"],
+                                   SIM_NET["workers_per_subnet"],
+                                   SIM_NET["tau"], SIM_NET["q"],
+                                   worker_rates=SIM_NET["worker_rates"])
+    log("sim", f"{cfg.name}: {model_mod.count_params(params)} params cast "
+        f"to float32 ({len(tree_leaves(params))} leaves; packed "
+        f"(W, C) = ({spec.num_workers}, {spec.total_cols})) in "
+        f"{time.perf_counter() - t0:.1f} s; W = 4 workers (2 subnets x 2, "
+        f"ring, rates {SIM_NET['worker_rates']}), tau = q = 2, eta "
+        f"{SIM_ETA}, {SIM_SLOTS} slots of 4 x 128 tokens per worker; W = 8 "
+        f"would need ~95 GB, so W = 4 is the one cut")
+
+    def run(label, policy, mixing="dense", kernel="pallas", overlap="none",
+            exec_mode="event"):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with ExecClock() as clock:
+            res = ttl.run_timeline(
+                loss_fn, acc_fn, params, worker_data, eval_data, eval_data,
+                net, sched, slots=SIM_SLOTS, policy=policy,
+                cfg=SimConfig(eta=SIM_ETA, batch_size=4, eval_every=SIM_SLOTS,
+                              mixing=mixing, kernel=kernel, overlap=overlap,
+                              overlap_chunks=SIM_CHUNKS),
+                seed=0, policy_rng=np.random.default_rng(0),
+                exec_mode=exec_mode, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = mix_launches()
+        plan = res.plan
+        events = [s for s in range(plan.slots) if plan.op_ids[s] != 0
+                  or s in (plan.op_mats or {})]
+        log("sim", f"({label}) {policy} {mixing} kernel={kernel} "
+            f"overlap={overlap} exec={exec_mode}: {len(events)} events at "
+            f"slots {[s + 1 for s in events]}; launches {launches}; u_k loss "
+            f"{res.train_loss.tolist()} acc {res.test_acc.tolist()}; "
+            f"seconds per local slot {clock.local}, per event slot "
+            f"{clock.event}; wall {wall} s; peak memory "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30} GiB on {smi}")
+        if not np.isfinite(res.train_loss).all():
+            raise AssertionError(f"({label}) non-finite loss")
+        return res, launches, len(events)
+
+    def expect(label, launches, **want):
+        full = {"K1a": 0, "K1b": 0, "K2": 0, "K5": 0, **want}
+        got = {k: launches[k] for k in full}
+        if got != full:
+            raise AssertionError(f"({label}) launches {got}, expected {full}")
+
+    w, layers = 4, cfg.num_layers
+    res_a, la, ev_a = run("a", "deadline", "two_stage")
+    expect("a", la, K2=ev_a)
+    want_k4 = layers * w * SIM_SLOTS
+    if la["K4"] != want_k4 or la["K3"] != layers * (w * SIM_SLOTS + 2):
+        raise AssertionError(f"(a) K3/K4 launches {la}, expected K4 "
+                             f"{want_k4}, K3 {layers * (w * SIM_SLOTS + 2)}")
+    u_a = res_a.final_avg_params
+    del res_a
+    res, ld, ev_d = run("d", "deadline", "two_stage", overlap="chunked")
+    n_chunks = len(packing.chunk_views(spec, SIM_CHUNKS))
+    expect("d", ld, K5=ev_d * n_chunks)
+    diff_d = _u_diff(u_a, res.final_avg_params)
+    if diff_d != 0.0:
+        raise AssertionError(f"(d) chunked u differs from (a) by {diff_d}")
+    res, le, _ = run("e", "deadline", "two_stage", kernel="xla")
+    expect("e", le)
+    rel_e = _u_norm(u_a, res.final_avg_params) / _u_norm(u_a, params)
+    log("sim", f"(d) u equal to (a) bit for bit; (e) kernel=xla vs (a): max "
+        f"|du| {_u_diff(u_a, res.final_avg_params)}, ||u_e - u_a|| / "
+        f"||u_a - u_0|| {rel_e} (limit {SIM_XLA_REL})")
+    if not rel_e <= SIM_XLA_REL:
+        raise AssertionError("(e) kernel=xla and kernel=pallas disagree")
+    del u_a, res
+    res_b, lb, ev_b = run("b", "barrier")
+    expect("b", lb, K1b=ev_b)
+    res, lf, _ = run("f", "barrier", exec_mode="full")
+    expect("f", lf, K1b=SIM_SLOTS)
+    diff_f = _u_diff(res_b.final_avg_params, res.final_avg_params)
+    if diff_f != 0.0 or list(res.train_loss) != list(res_b.train_loss):
+        raise AssertionError(f"(f) full scan differs from (b) by {diff_f}")
+    del res
+    # (f') the full scan per leaf (K1a every slot) from the same plan
+    ops.reset_launches()
+    scan = ttl.make_timeline_step_fn(loss_fn, net, SimConfig(
+        eta=SIM_ETA, batch_size=4, kernel="pallas"),
+        gate_mode=res_b.plan.gate_mode, pallas_packed=False, device=device)
+    carry = init_sim_carry(replicate(params, w), SimConfig(kernel="pallas"),
+                           seed=0)
+    t0 = time.perf_counter()
+    carry = scan(carry, to_device(worker_data, device), res_b.plan.op_ids,
+                 res_b.plan.active)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    u_f2 = weighted_average(carry[0], torch.as_tensor(
+        np.asarray(net.a), dtype=torch.float32, device=device))
+    lf2 = mix_launches()
+    del carry
+    expect("f'", lf2, K1a=SIM_SLOTS * len(spec.slots))
+    diff_f2 = _u_diff(res_b.final_avg_params, u_f2)
+    log("sim", f"(f) exec=full (K1b every slot, T = I at local slots) and "
+        f"(f') the full scan per leaf (K1a, {lf2['K1a']} launches, {wall} "
+        f"s) against (b) event-sparse: u equal bit for bit: "
+        f"{diff_f == 0.0 and diff_f2 == 0.0}")
+    if diff_f2 != 0.0:
+        raise AssertionError(f"(f') per-leaf full scan differs by {diff_f2}")
+    del res_b, u_f2
+    _, lc, ev_c = run("c", "gossip")
+    expect("c", lc, K1b=ev_c)
+    launches = {k: la[k] + lb[k] + lc[k] + ld[k] + le[k] + lf[k] + lf2[k]
+                for k in la}
+    profile_event(loss_fn, net, params, worker_data, device, smi)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def replicate_meta(params: dict, w: int) -> dict:
+    """The stacked tree's shapes and dtypes, as meta tensors."""
+    return tree_map(lambda x: torch.empty((w,) + tuple(x.shape),
+                                          dtype=x.dtype, device="meta"),
+                    params)
+
+
+def profile_event(loss_fn, net, params, worker_data, device, smi) -> None:
+    """One hub event slot of run (a)'s configuration (K2 over the packed
+    fleet) and one local slot: host wall without the profiler, then
+    `torch.profiler` for the device's busy time; and one mixing event
+    split into pack / kernel / unpack."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = SimConfig(eta=SIM_ETA, batch_size=4, mixing="two_stage",
+                    kernel="pallas")
+    ex = ttl.EventExecutor(loss_fn, net, cfg, gate_mode="bernoulli",
+                           device=device)
+    data = to_device(worker_data, device)
+    carry = init_sim_carry(replicate(params, 4), cfg, seed=0)
+    ones = np.ones(4, np.float32)
+    hub = protocol.PHASE_HUB
+
+    def busy(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        return out, wall_ms, busy_ms, len(dev)
+
+    carry = ex.step_phase[hub](carry, data, ones)        # warm-up
+    for name, fn in (("event (hub, K2)", lambda: ex.step_phase[hub](
+                          carry, data, ones)),
+                     ("local", lambda: ex.scan_local(carry, data,
+                                                     ones[None]))):
+        carry, wall_ms, busy_ms, n_ops = busy(fn)
+        log("sim", f"{name} slot at full width: wall {wall_ms} ms (no "
+            f"profiler); device busy {busy_ms} ms ({100 * busy_ms / wall_ms}"
+            f"% of the wall), {n_ops} device operations on {smi}")
+    stacked, key = carry[0], carry[3]
+    grads, theta, _ = ex._sample(stacked, key, data, ones)
+    op = ex._phase_ops[hub]
+    marks = []
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    mark()
+    spec = packing.pack_spec(stacked)
+    x = packing.pack(stacked, spec)
+    g = packing.pack(grads, spec)
+    mark()
+    out = hm.hier_mix_chunks(x, g, op, theta.to(device), SIM_ETA)
+    mark()
+    packing.unpack(out, spec)
+    mark()
+    ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    log("sim", f"one mixing event (hub, K2) at full width: pack (params + "
+        f"grads, {len(spec.slots)} leaves each) {ms[0]} ms, kernel {ms[1]} "
+        f"ms, unpack {ms[2]} ms (host clock between syncs) on {smi}")
+
+
+def phase_sim_paper(device: torch.device, smi: str) -> dict:
+    """The paper's logistic regression at the paper's scale
+    (benchmarks/common.py `BenchScale.paper()`: W = 100 in 10 sub-networks,
+    512 samples per worker, eta 0.1, batch 16, dim 24, 8 classes) through
+    `simulate` (K1b at W = 100, dense mixing) and through `run_timeline`
+    with two_stage mixing (K2 at D = 10), each with kernel="pallas"
+    against kernel="xla".  Depth cut: 256 of the paper's 8192 steps (64
+    timeline slots)."""
+    steps, slots, dim, classes = 256, 64, 24, 8
+    rates = tuple(np.linspace(0.5, 1.0, 100))
+    net, sched = baselines.mll_sgd("ring", [10] * 10, tau=8, q=2,
+                                   worker_rates=rates)
+    data = make_classification(100, 512, dim=dim, num_classes=classes,
+                               test_size=1024, seed=0)
+
+    def loss_fn(p, b):
+        logits = b["x"] @ p["w"] + p["b"]
+        gold = torch.gather(logits, 1, b["y"].long()[:, None])[:, 0]
+        return (torch.logsumexp(logits, -1) - gold).mean()
+
+    def acc_fn(p, b):
+        return ((b["x"] @ p["w"] + p["b"]).argmax(-1) == b["y"]).float() \
+            .mean()
+    init = {"w": torch.zeros(dim, classes), "b": torch.zeros(classes)}
+    launches, res = {}, {}
+    for kind in ("simulate", "timeline"):
+        for kernel in ("pallas", "xla"):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            if kind == "simulate":
+                r = simulate(loss_fn, acc_fn, init, data.worker_data(),
+                             data.full, data.test, net, sched, steps=steps,
+                             cfg=SimConfig(eta=0.1, batch_size=16,
+                                           eval_every=64, kernel=kernel),
+                             seed=0, device=device)
+            else:
+                r = ttl.run_timeline(
+                    loss_fn, acc_fn, init, data.worker_data(), data.full,
+                    data.test, net, sched, slots=slots, policy="deadline",
+                    cfg=SimConfig(eta=0.1, batch_size=16, eval_every=32,
+                                  mixing="two_stage", kernel=kernel),
+                    seed=0, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[kind, kernel] = mix_launches()
+            res[kind, kernel] = r
+            log("sim-paper", f"{kind} W=100 D=10 kernel={kernel}: loss "
+                f"{r.train_loss.tolist()} acc {r.test_acc.tolist()}; "
+                f"launches {launches[kind, kernel]}; wall {wall} s on {smi}")
+        a, b = res[kind, "pallas"], res[kind, "xla"]
+        dl = float(np.abs(a.train_loss - b.train_loss).max())
+        du = _u_diff(a.final_avg_params, b.final_avg_params)
+        log("sim-paper", f"{kind}: pallas vs xla max |d loss| {dl}, max |du| "
+            f"{du} (limit {PAPER_TOL})")
+        if not (dl <= PAPER_TOL and du <= PAPER_TOL):
+            raise AssertionError(f"{kind}: pallas and xla disagree")
+        if not a.train_loss[-1] < a.train_loss[0]:
+            raise AssertionError(f"{kind}: the loss did not decrease")
+    events = int((res["timeline", "pallas"].plan.op_ids != 0).sum())
+    want = {("simulate", "pallas"): dict(K1b=steps),
+            ("timeline", "pallas"): dict(K2=events)}
+    for key, lz in launches.items():
+        full = {"K1a": 0, "K1b": 0, "K2": 0, "K5": 0, **want.get(key, {})}
+        if {k: lz[k] for k in full} != full:
+            raise AssertionError(f"{key}: launches {lz}, expected {full}")
+    return {k: sum(lz[k] for lz in launches.values())
+            for k in ("K1a", "K1b", "K2", "K5")}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -879,23 +1447,50 @@ def main() -> int:
                      kw["softcap"])
     log("report", f"K4 at the training path's shapes q {tuple(q.shape)} k "
         f"{tuple(k.shape)} {str(q.dtype)[6:]}: {json.dumps(k4)}")
+    del q, k, v, o, lse, do, bwd_rec
+    torch.cuda.empty_cache()
+
+    mix = phase_sim_kernels(timer, device, smi)
+    sim_launches = phase_sim(device, smi)
+    paper_launches = phase_sim_paper(device, smi)
+    src = "src/repro_torch/csrc/hier_mix.cu"
+
+    def mix_entry(key, name, line):
+        by_path = {"sim-qwen2": sim_launches[key],
+                   "sim-paper": paper_launches[key]}
+        if sum(by_path.values()) == 0:
+            raise AssertionError(f"{key} was launched no time on its path")
+        return dict(name=name, route="cuda", source=src,
+                    replaces=f"src/repro/kernels/hier_mix.py:{line}",
+                    launches=sum(by_path.values()),
+                    launches_by_path=by_path, **mix[key])
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_attention.py:148",
              launches=launches["flash_attention"]
-             + train_launches["flash_attention"],
+             + train_launches["flash_attention"] + sim_launches["K3"],
              launches_by_path={"serve": launches["flash_attention"],
-                               "train": train_launches["flash_attention"]},
+                               "train": train_launches["flash_attention"],
+                               "sim-qwen2": sim_launches["K3"]},
              **k3),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_attention.py:282",
-             launches=launches["flash_decode"], **k6),
+             launches=launches["flash_decode"],
+             launches_by_path={"serve": launches["flash_decode"]}, **k6),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:473",
-             launches=train_launches["flash_attention_bwd"], **k4),
+             launches=train_launches["flash_attention_bwd"]
+             + sim_launches["K4"],
+             launches_by_path={
+                 "train": train_launches["flash_attention_bwd"],
+                 "sim-qwen2": sim_launches["K4"]}, **k4),
+        mix_entry("K1a", "hier_mix_chunks (K1a, per leaf)", 94),
+        mix_entry("K1b", "hier_mix_packed dense (K1b)", 202),
+        mix_entry("K2", "hier_mix_packed grouped (K2)", 72),
+        mix_entry("K5", "hier_mix_packed_chunked (K5)", 283),
     ]
     log("report", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,15 +15,21 @@ Ported so far:
   gated inner optimizers, dense / two_stage / ppermute mixing, full
   protocol checkpoints in the JAX on-disk format, and u_k handed to
   ``ServeEngine``;
-* three hand-written Hopper kernels: ``csrc/flash_fwd.cu`` (flash-attention
-  forward), ``csrc/flash_bwd.cu`` (its backward) and
-  ``csrc/flash_decode.cu`` (paged flash-decode).
+* the simulator and the timeline executors -- ``simulate`` (the paper's
+  Algorithm 1 in matrix form) and ``run_timeline`` (readiness-policy plans
+  on a slot clock, event-sparse or every slot), with packing
+  (``core.packing``), the paper's baselines and the outer optimizer;
+* four hand-written Hopper kernels: ``csrc/flash_fwd.cu`` (flash-attention
+  forward), ``csrc/flash_bwd.cu`` (its backward), ``csrc/flash_decode.cu``
+  (paged flash-decode) and ``csrc/hier_mix.cu`` (the fused gated-SGD +
+  averaging update, dense and grouped, per leaf, packed or chunked).
 
 Device rule: entry points that create tensors (``init_model``,
 ``init_paged_state``, ``ServeEngine``, ``state_from_network``,
-``run_training``, ``load_u_k``, ``interop.params_from_numpy``) run on
-``cuda`` unless the caller passes ``device="cpu"``, and raise when no GPU is
-present.  Functions that take tensors run where those tensors live.
+``run_training``, ``load_u_k``, ``simulate``, ``run_timeline``,
+``interop.params_from_numpy``) run on ``cuda`` unless the caller passes
+``device="cpu"``, and raise when no GPU is present.  Functions that take
+tensors run where those tensors live.
 """
 from __future__ import annotations
 
@@ -38,3 +44,11 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+# the simulator's entry points (imported last: their modules use
+# `resolve_device`)
+from repro_torch.core.simulator import SimConfig, simulate  # noqa: E402
+from repro_torch.core.timeline import run_timeline  # noqa: E402
+
+__all__ = ["SimConfig", "resolve_device", "run_timeline", "simulate"]

@@ -9,11 +9,20 @@ port's gated trajectory is the reference's without injecting θ:
 * ``PRNGKey(seed)`` = ``[seed >> 32, seed & 0xFFFFFFFF]`` for a 32-bit seed
   (``[0, seed]`` without x64);
 * ``fold_in(key, d)`` = ``threefry2x32(key, [0, d])``;
-* ``uniform(key, (n,))`` under ``jax_threefry_partitionable=True`` (the
-  default since jax 0.5): bits_i = y0 ^ y1 of ``threefry2x32(key, [0, i])``
-  for the flat index i, then ``(bits >> 9) | 0x3F800000`` read as float32,
-  minus 1.
+* ``split(key, n)`` under ``jax_threefry_partitionable=True`` (the
+  default since jax 0.5): key i is ``threefry2x32(key, [0, i])``, both
+  words (JAX's ``_threefry_split_foldlike``);
+* ``random_bits(key, n)``: bits_i = y0 ^ y1 of ``threefry2x32(key, [0, i])``
+  for the flat index i;
+* ``uniform(key, (n,))``: ``(bits >> 9) | 0x3F800000`` read as float32,
+  minus 1;
+* ``randint(key, (n,), lo, hi)`` with int32: ``k1, k2 = split(key, 2)``,
+  32 random bits from each, then ``((hi_bits % span) * m + lo_bits % span)
+  % span`` with ``m = (2^16 % span)^2 % span``, in wrapping uint32 (JAX's
+  ``_randint``).
 
+The simulator's sampler (`repro_torch.core.timeline`) draws its batch
+indices and gates from these, so its trajectory is the JAX package's.
 Everything here runs on the host; the draws are a few words per step.
 """
 from __future__ import annotations
@@ -64,9 +73,36 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return int(y0[0]), int(y1[0])
 
 
-def uniform(key: tuple[int, int], n: int) -> np.ndarray:
-    """``jax.random.uniform(key, (n,), jnp.float32)``: float32 in [0, 1)."""
+def split(key: tuple[int, int], n: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)`` as ``n`` keys."""
     y0, y1 = threefry2x32(key, np.zeros(n, np.uint32),
                           np.arange(n, dtype=np.uint32))
-    bits = (y0 ^ y1) >> np.uint32(9) | np.uint32(0x3F800000)
+    return [(int(a), int(b)) for a, b in zip(y0, y1)]
+
+
+def random_bits(key: tuple[int, int], n: int) -> np.ndarray:
+    """``jax.random.bits(key, (n,), jnp.uint32)``."""
+    y0, y1 = threefry2x32(key, np.zeros(n, np.uint32),
+                          np.arange(n, dtype=np.uint32))
+    return y0 ^ y1
+
+
+def uniform(key: tuple[int, int], n: int) -> np.ndarray:
+    """``jax.random.uniform(key, (n,), jnp.float32)``: float32 in [0, 1)."""
+    bits = random_bits(key, n) >> np.uint32(9) | np.uint32(0x3F800000)
     return bits.view(np.float32) - np.float32(1.0)
+
+
+def randint(key: tuple[int, int], n: int, lo: int, hi: int) -> np.ndarray:
+    """``jax.random.randint(key, (n,), lo, hi, jnp.int32)`` for int32
+    bounds: int32 in [lo, hi) (``lo`` when ``hi <= lo``)."""
+    if not (-2**31 <= lo < 2**31 and -2**31 <= hi < 2**31):
+        raise ValueError(f"bounds [{lo}, {hi}) do not fit int32")
+    k1, k2 = split(key, 2)
+    span = np.uint32(max(hi - lo, 1))
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2**16) % span
+        mult = (mult * mult) % span
+        off = (random_bits(k1, n) % span) * mult + random_bits(k2, n) % span
+        off = off % span
+        return (np.int64(lo) + off.astype(np.int64)).astype(np.int32)

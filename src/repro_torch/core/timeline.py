@@ -21,9 +21,23 @@ gate does the draws), ``"deterministic"`` and ``"measured"`` (a 1/p_i
 staircase; measured rates come from a `RateCalibration`).
 
 `plan_trace` / `export_trace` / `load_trace` write and read the shared
-``mll-timeline-trace/v1`` document.  The plan executors of the JAX package
-(`make_timeline_step_fn`, `EventExecutor`, `run_timeline`, the chunked
-paths) are not ported yet (ROADMAP.md Queue 1); the production harness
+``mll-timeline-trace/v1`` document.
+
+Plans execute through the protocol engine end to end (every ported mixing
+strategy and inner optimizer, per-worker state frozen on idle slots) on the
+simulator's carry (`simulator.init_sim_carry`); with p_i = 1 the barrier
+policy reproduces the lock-step trajectory bit for bit.  Execution is
+**event-sparse** by default (`EventExecutor`): local-only slots run just
+the gated inner update -- no identity operator contraction -- and each
+mixing event applies its operator once.  Every slot draws the same
+randomness as the full every-slot scan (`make_timeline_step_fn`,
+``exec_mode="full"``, kept as the reference for op-id plans), so the two
+give the same bits.  With ``kernel="pallas"`` events run the hand-written
+fused update + mix kernel over the packed (W, sum C_i) float32 buffer
+(`repro_torch.kernels.ops.hier_mix_packed`): dense (W, W) matrices for
+``mixing="dense"`` (gossip's per-event masked operators included) and
+`GroupedOperator`s for ``two_stage`` / ``ppermute``; ``overlap="chunked"``
+launches it once per column chunk.  The production harness
 (`repro_torch.launch.harness`) executes plans on its own.
 """
 from __future__ import annotations
@@ -34,8 +48,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core import protocol
+from repro_torch import resolve_device
+from repro_torch.core import packing, prng, protocol
 from repro_torch.core.hierarchy import MLLSchedule, MultiLevelNetwork
+from repro_torch.core.simulator import SimConfig, _check_kernel, \
+    _check_overlap, apply_operator, evaluate, init_sim_carry, replicate, \
+    to_device, weighted_average
+from repro_torch.tree import tree_leaves, tree_map, tree_structure, \
+    tree_unflatten
 
 Tree = Any
 
@@ -467,11 +487,339 @@ class NeighborReadyGossipPolicy(ReadinessPolicy):
 
 # ---------------------------------------------------------------- execution
 def apply_event_operator(stacked: Tree, op: torch.Tensor) -> Tree:
-    """Per-event dense (W, W) operator, in place: each leaf mixes in its OWN
-    dtype (the operator is cast to it), as the JAX package's
-    `apply_event_operator` does for mixed-dtype trees and, for all-float32
-    trees, its `apply_operator`."""
+    """Per-event dense (W, W) operator with the engine's dtype semantics:
+    all-f32 trees take `simulator.apply_operator` (a new tree; the packed
+    flat path where `packing.flat_paths_enabled`); other trees mix each
+    leaf in its OWN dtype, in place (an f32 product would promote bf16
+    params).  The one implementation the event executor and the production
+    `train_step.mll_harness_step` share."""
+    if packing.all_f32(stacked):
+        return apply_operator(stacked, op)
     return protocol._einsum_operator(op, stacked, None)
+
+
+def chunked_update_mix(stacked: Tree, grads: Tree, op: torch.Tensor,
+                       theta: torch.Tensor, eta: float,
+                       num_chunks: int) -> Tree:
+    """Torch chunked fused update + mix: the ``overlap="chunked"`` event
+    body of ``kernel="xla"``.
+
+    Params and grads pack into (W, sum C) f32 buffers; for each column
+    chunk (`packing.chunk_views`) the gated SGD update
+    u_c = x_c - (eta*theta)*g_c and the contraction y_c = T^T u_c run as
+    one unit (with ``kernel="pallas"`` the analogous
+    `kernels.ops.hier_mix_packed_chunked` launches the kernel per chunk).
+
+    Against ``overlap="none"`` this differs in two documented ways, so the
+    two agree to float32 tolerance (1e-6), not bit for bit: the mix
+    contracts the PACKED buffer (one product per chunk) instead of one per
+    leaf, and structured strategies run their equal dense (W, W) operator
+    (st.v_op / st.z_op) instead of the grouped mean-then-roll form.  The
+    update replicates the kernel's arithmetic (f32, ``(eta * theta) * g``
+    grouping, one rounding to the leaf dtype on unpack)."""
+    spec = packing.pack_spec(stacked)
+    x = packing.pack(stacked, spec)
+    g = packing.pack(grads, spec)
+    a = (theta.to(x.device, torch.float32) * float(np.float32(eta)))[:, None]
+    t = op.to(x.device, torch.float32)
+    out = torch.empty_like(x)
+    for ch in packing.chunk_views(spec, num_chunks):
+        cols = slice(ch.lo, ch.hi)
+        u = x[:, cols] - a * g[:, cols]
+        out[:, cols] = torch.einsum("ij,ic->jc", t, u)
+    return packing.unpack(out, spec)
+
+
+def chunked_apply_operator(stacked: Tree, op: torch.Tensor,
+                           num_chunks: int) -> Tree:
+    """Mix-only chunked path: the dense (W, W) operator contracts the
+    packed buffer one column chunk at a time (no fused update).  Carries
+    `chunked_update_mix`'s reduction-order contract: agrees with
+    ``overlap="none"`` to float32 tolerance, not bit for bit."""
+    spec = packing.pack_spec(stacked)
+    x = packing.pack(stacked, spec)
+    t = op.to(x.device, torch.float32)
+    out = torch.empty_like(x)
+    for ch in packing.chunk_views(spec, num_chunks):
+        cols = slice(ch.lo, ch.hi)
+        out[:, cols] = torch.einsum("ij,ic->jc", t, x[:, cols])
+    return packing.unpack(out, spec)
+
+
+def _pallas_opt_state(opt_state: Tree, theta: torch.Tensor) -> Tree:
+    """Engine-owned bookkeeping for the kernel path: the fused kernel owns
+    the parameter update, but the per-worker step counts advance exactly
+    as `protocol.gated_inner_update` would."""
+    counts = opt_state["counts"]
+    return {"inner": opt_state["inner"],
+            "counts": counts + (theta != 0).to(counts.device, torch.int32)}
+
+
+def _slot_parts(loss_fn, network: MultiLevelNetwork, cfg: SimConfig, *,
+                gate_mode: str):
+    """Shared per-slot machinery: the gradient/gate sampler (the JAX
+    package's PRNG consumption, so every executor built from it follows
+    the reference's draws) and the local (mixing-free) update."""
+    if gate_mode not in ("bernoulli", "forced"):
+        raise ValueError(f"unknown gate_mode {gate_mode!r}")
+    n = network.num_workers
+    p_rates = np.asarray(network.worker_rates, np.float32)
+    optimizer = protocol.resolve_inner_optimizer(cfg)
+    eta = float(np.float32(cfg.eta))
+
+    def sample(stacked, key, data, act):
+        """(grads, theta, key') for one slot -- the reference's draws:
+        ``key, kb, kg = split(key, 3)``, per-worker batch keys
+        ``split(kb, n)``, ``randint`` batch indices per worker, then the
+        gate ``uniform(kg, (n,)) < p``.  Per-worker gradients are a loop
+        over the workers with `torch.autograd.grad` (the flash-attention
+        kernel has no vmap rule); they are written into one stacked tree
+        in the params' dtypes."""
+        key, kb, kg = prng.split(key, 3)
+        structure = tree_structure(stacked)
+        params = tree_leaves(stacked)
+        grads = [torch.empty_like(x) for x in params]
+        first = tree_leaves(data)[0]
+        # every worker's batch indices, sent to the device in one copy
+        idx = torch.from_numpy(np.stack([
+            prng.randint(wkey, cfg.batch_size, 0, first.shape[1])
+            for wkey in prng.split(kb, n)]).astype(np.int64)).to(first.device)
+        for i in range(n):
+            batch = tree_map(lambda x: x[i][idx[i]], data)
+            wp = [x[i].detach().requires_grad_() for x in params]
+            with torch.enable_grad():
+                loss = loss_fn(tree_unflatten(structure, wp), batch)
+                gs = torch.autograd.grad(loss, wp, allow_unused=True)
+            with torch.no_grad():
+                for dst, gi in zip(grads, gs):
+                    if gi is None:
+                        dst[i].zero_()
+                    else:
+                        dst[i].copy_(gi)
+            del loss, gs, wp
+        draw = (prng.uniform(kg, n) < p_rates).astype(np.float32)
+        act = np.asarray(act, np.float32)
+        theta = draw * act if gate_mode == "bernoulli" else act
+        return (tree_unflatten(structure, grads), torch.from_numpy(theta),
+                key)
+
+    @torch.no_grad()
+    def local_update(stacked, opt_state, grads, theta):
+        """Gated inner update only -- the event-free slot body, in place.
+        The kernel backend replicates the kernel's arithmetic exactly
+        (f32, ``(eta * theta) * g`` grouping, one rounding to the leaf
+        dtype) so that skipping the identity contraction is bit-for-bit
+        invisible."""
+        if cfg.kernel == "pallas":
+            a = theta.to(tree_leaves(stacked)[0].device,
+                         torch.float32) * eta
+
+            def upd(x, g):
+                gate = a.reshape(a.shape + (1,) * (x.dim() - 1))
+                return x.copy_((x.float() - gate * g.float()).to(x.dtype))
+
+            stacked = tree_map(upd, stacked, grads)
+            return stacked, _pallas_opt_state(opt_state, theta)
+        return protocol.gated_inner_update(optimizer, stacked, opt_state,
+                                           grads, theta)
+
+    return sample, local_update, optimizer
+
+
+def make_timeline_step_fn(loss_fn: Callable[[Tree, Tree], torch.Tensor],
+                          network: MultiLevelNetwork, cfg: SimConfig, *,
+                          gate_mode: str, pallas_packed: bool | None = None,
+                          device: str | torch.device | None = None):
+    """Full (every-slot) scan, the lock-step reference executor (and the
+    ``exec_mode="full"`` baseline): every slot samples, updates and applies
+    its operator -- the identity at local slots -- with a per-slot
+    ``active`` mask multiplying (bernoulli) or replacing (forced) the gate.
+
+    Signature: ``scan_slots(carry, data, ops, active) -> carry`` where
+    ``ops`` is (L,) int op ids, ``active`` (L, W), and ``carry`` the
+    simulator's (`init_sim_carry`) layout.  With ``kernel="pallas"`` every
+    slot launches the fused kernel: packed (K1 over the (W, sum C) buffer,
+    one launch a slot) or per leaf (one launch per leaf) as
+    ``pallas_packed`` says; None follows `packing.flat_paths_enabled`
+    (packed on the card).  Both give the same bits.  ``device`` holds the
+    operators (default ``cuda``).
+    """
+    _check_kernel(cfg)
+    if cfg.overlap != "none":
+        raise ValueError(
+            "overlap='chunked' is an event-executor optimisation (chunked "
+            "mixing at plan events); the full every-slot scan has no "
+            "chunked form -- use exec_mode='event' or overlap='none'")
+    device = resolve_device(device)
+    if pallas_packed is None:
+        pallas_packed = packing.flat_paths_enabled(device)
+    n = network.num_workers
+    st = protocol.state_from_network(network, device=device)
+    strategy = protocol.resolve_mixing(cfg)
+    sample, _, optimizer = _slot_parts(loss_fn, network, cfg,
+                                       gate_mode=gate_mode)
+    if cfg.kernel == "pallas":
+        from repro_torch.kernels import ops as kops
+        operators = [torch.eye(n, dtype=torch.float32, device=device),
+                     st.v_op, st.z_op]
+        mix = kops.hier_mix_packed if pallas_packed else kops.hier_mix_pytree
+
+    def scan_slots(carry, data, ops, active):
+        stacked, opt_state, mix_state, key = carry
+        for op, act in zip(np.asarray(ops), np.asarray(active)):
+            grads, theta, key = sample(stacked, key, data, act)
+            if cfg.kernel == "pallas":
+                stacked = mix(stacked, grads, operators[int(op)], theta,
+                              cfg.eta)
+                opt_state = _pallas_opt_state(opt_state, theta)
+            else:
+                stacked, opt_state = protocol.gated_inner_update(
+                    optimizer, stacked, opt_state, grads, theta)
+                stacked, mix_state = protocol.schedule_mix(
+                    strategy, stacked, mix_state, 0, st, 1, 1,
+                    static_phase=int(op))
+            del grads
+        return (stacked, opt_state, mix_state, key)
+
+    return scan_slots
+
+
+class EventExecutor:
+    """Event-sparse slot execution: local-only slots run ONLY the gated
+    inner update (no operator contraction); mixing runs once per event
+    with its operator known ahead.
+
+    Built from the same per-slot sampler as the full scan, so a plan
+    executed event-sparsely gives the bit-for-bit identical trajectory:
+    every slot consumes the same draws and applies the same update; only
+    the identity contractions disappear.  Local runs go in power-of-two
+    segments, as in the JAX package (where they bound recompilation).
+    With ``kernel="pallas"`` events launch the fused kernel over the
+    packed buffer (`kernels.ops.hier_mix_packed`, or
+    `hier_mix_packed_chunked` under ``overlap="chunked"``): dense (W, W)
+    operators for ``mixing="dense"`` (per-event masked gossip matrices
+    included) and `GroupedOperator`s for ``two_stage`` / ``ppermute``
+    (whose hub matrix must be circulant).  ``device`` holds the operators
+    (default ``cuda``).
+    """
+
+    def __init__(self, loss_fn, network: MultiLevelNetwork, cfg: SimConfig,
+                 *, gate_mode: str, device: str | torch.device | None = None):
+        _check_kernel(cfg, structured_ok=True)
+        _check_overlap(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.st = protocol.state_from_network(network, device=device)
+        if cfg.overlap == "chunked" and cfg.kernel != "pallas":
+            # chunked torch events contract the dense (W, W) operator per
+            # column chunk; structured strategies map to their dense forms
+            self._phase_dense = {protocol.PHASE_SUBNET: self.st.v_op,
+                                 protocol.PHASE_HUB: self.st.z_op}
+        self.strategy = protocol.resolve_mixing(cfg)
+        self._sample, self._local_update, self.optimizer = _slot_parts(
+            loss_fn, network, cfg, gate_mode=gate_mode)
+        if cfg.kernel == "pallas":
+            from repro_torch.kernels import ops as kops
+            self._kops = kops
+            if cfg.mixing == "dense":
+                self._phase_ops = {protocol.PHASE_SUBNET: self.st.v_op,
+                                   protocol.PHASE_HUB: self.st.z_op}
+            else:           # two_stage / ppermute: fused structured operators
+                if cfg.mixing == "ppermute":
+                    protocol._circulant_coeffs(self.st)   # validate H
+                self._phase_ops = {
+                    protocol.PHASE_SUBNET: kops.make_grouped_operator(
+                        network.subnet_of, network.v, device=device),
+                    protocol.PHASE_HUB: kops.make_grouped_operator(
+                        network.subnet_of, network.v, h=network.hub_net.h,
+                        device=device),
+                }
+        self.step_phase = {
+            ph: (lambda carry, data, act, ph=ph:
+                 self._step(carry, data, act, ph))
+            for ph in (protocol.PHASE_SUBNET, protocol.PHASE_HUB)}
+
+    def scan_local(self, carry, data, active):
+        """Local-only slots, one per row of ``active``."""
+        stacked, opt_state, mix_state, key = carry
+        for act in np.asarray(active):
+            grads, theta, key = self._sample(stacked, key, data, act)
+            stacked, opt_state = self._local_update(stacked, opt_state,
+                                                    grads, theta)
+            del grads
+        return (stacked, opt_state, mix_state, key)
+
+    def _mix_event(self, stacked, opt_state, mix_state, grads, theta, op):
+        """``op``: a phase id, or a dense (W, W) tensor (gossip), or (with
+        the kernel) the phase's operator."""
+        cfg = self.cfg
+        if cfg.kernel == "pallas":
+            if cfg.overlap == "chunked":
+                stacked = self._kops.hier_mix_packed_chunked(
+                    stacked, grads, op, theta, cfg.eta,
+                    num_chunks=cfg.overlap_chunks)
+            else:
+                stacked = self._kops.hier_mix_packed(stacked, grads, op,
+                                                     theta, cfg.eta)
+            return stacked, _pallas_opt_state(opt_state, theta), mix_state
+        if cfg.overlap == "chunked":
+            op_mat = op if isinstance(op, torch.Tensor) \
+                else self._phase_dense[op]
+            stacked = chunked_update_mix(stacked, grads, op_mat, theta,
+                                         cfg.eta, cfg.overlap_chunks)
+            return stacked, _pallas_opt_state(opt_state, theta), mix_state
+        stacked, opt_state = protocol.gated_inner_update(
+            self.optimizer, stacked, opt_state, grads, theta)
+        if isinstance(op, torch.Tensor):
+            stacked = apply_event_operator(stacked, op)
+        elif op == protocol.PHASE_SUBNET:
+            stacked, mix_state = self.strategy.subnet_with_state(
+                stacked, self.st, mix_state)
+        else:
+            stacked, mix_state = self.strategy.hub_with_state(
+                stacked, self.st, mix_state)
+        return stacked, opt_state, mix_state
+
+    def _step(self, carry, data, act, op):
+        stacked, opt_state, mix_state, key = carry
+        grads, theta, key = self._sample(stacked, key, data, act)
+        if self.cfg.kernel == "pallas" and not isinstance(op, torch.Tensor):
+            op = self._phase_ops[op]
+        stacked, opt_state, mix_state = self._mix_event(
+            stacked, opt_state, mix_state, grads, theta, op)
+        return (stacked, opt_state, mix_state, key)
+
+    def step_dense(self, carry, data, act, t: torch.Tensor):
+        """One event slot with a dense (W, W) operator (gossip)."""
+        return self._step(carry, data, act, t)
+
+    def run(self, carry, data, plan: TimelinePlan, lo: int, hi: int):
+        """Execute slots [lo, hi) of the plan event-sparsely."""
+        op_mats = plan.op_mats or {}
+        device = self.st.v_op.device
+        s = lo
+        while s < hi:
+            e = s
+            while e < hi and plan.op_ids[e] == 0 and e not in op_mats:
+                e += 1
+            run = e - s                       # local-only slots [s, e)
+            off = s
+            while run:
+                k = 1 << (run.bit_length() - 1)   # pow2 segments
+                carry = self.scan_local(carry, data,
+                                        plan.active[off:off + k])
+                off += k
+                run -= k
+            if e < hi:
+                act = plan.active[e]
+                if e in op_mats:
+                    carry = self.step_dense(carry, data, act, torch.as_tensor(
+                        op_mats[e], dtype=torch.float32, device=device))
+                else:
+                    carry = self.step_phase[int(plan.op_ids[e])](
+                        carry, data, act)
+            s = e + 1
+        return carry
 
 
 # ------------------------------------------------------------- event traces
@@ -521,3 +869,94 @@ def load_trace(path: str) -> dict:
         raise ValueError(f"{path}: not a {TRACE_SCHEMA} document "
                          f"(schema={doc.get('schema')!r})")
     return doc
+
+
+@dataclasses.dataclass
+class TimelineResult:
+    slots: np.ndarray             # eval slot indices (1-based, inclusive)
+    train_loss: np.ndarray        # F(u) on the full training set
+    test_acc: np.ndarray
+    final_avg_params: Tree
+    plan: TimelinePlan
+
+
+def run_timeline(loss_fn: Callable[[Tree, Tree], torch.Tensor],
+                 accuracy_fn: Callable[[Tree, Tree], torch.Tensor],
+                 init_params: Tree,
+                 worker_data: Tree,
+                 eval_data: Tree,
+                 test_data: Tree,
+                 network: MultiLevelNetwork,
+                 schedule: MLLSchedule,
+                 *,
+                 slots: int,
+                 policy: str | ReadinessPolicy = "barrier",
+                 cfg: SimConfig = SimConfig(),
+                 seed: int = 0,
+                 policy_rng: np.random.Generator | None = None,
+                 rate_model: str = "bernoulli",
+                 exec_mode: str = "event",
+                 device: str | torch.device | None = None) -> TimelineResult:
+    """Run the network against the slot clock for `slots` slots.
+
+    ``policy_rng`` drives the policy's host-side progress draws (defaults
+    to ``np.random.default_rng(seed)``).  ``seed`` also seeds the per-slot
+    draws (minibatch sampling + Bernoulli gate), `simulator.simulate`'s
+    stream.  Evaluates u every `cfg.eval_every` slots.  The params and data
+    are moved to ``device`` (default ``cuda``; raises without a GPU unless
+    ``device="cpu"``).
+
+    ``exec_mode="event"`` (default) runs the event-sparse executor;
+    ``exec_mode="full"`` the every-slot scan (op-id plans only -- policies
+    that emit per-slot dense matrices have no full-scan form).  Both give
+    the same bits.
+    """
+    device = resolve_device(device)
+    pol = get_policy(policy) if isinstance(policy, str) else policy
+    rng = policy_rng if policy_rng is not None else np.random.default_rng(seed)
+    plan = pol.plan(network, schedule, slots, rng, rate_model=rate_model)
+    n = network.num_workers
+    a = torch.as_tensor(np.asarray(network.a), dtype=torch.float32,
+                        device=device)
+    worker_data, eval_data, test_data = (
+        to_device(t, device) for t in (worker_data, eval_data, test_data))
+    stacked = replicate(to_device(init_params, device), n)
+    carry = init_sim_carry(stacked, cfg, seed)
+    dense = pol.needs_dense or plan.op_mats is not None
+    # Partial-participation events (gossip) run as per-event masked dense
+    # operators whatever cfg.mixing says; full V/Z rounds (op-id events)
+    # use the strategy.
+    if exec_mode == "full":
+        if dense:
+            raise ValueError(
+                "exec_mode='full' only supports op-id plans: the dense "
+                "identity-padded (L, W, W) operator stack was removed in "
+                "favour of event-sparse execution")
+        scan_slots = make_timeline_step_fn(loss_fn, network, cfg,
+                                           gate_mode=plan.gate_mode,
+                                           device=device)
+    elif exec_mode == "event":
+        executor = EventExecutor(loss_fn, network, cfg,
+                                 gate_mode=plan.gate_mode, device=device)
+    else:
+        raise ValueError(f"unknown exec_mode {exec_mode!r}; "
+                         f"expected 'event' or 'full'")
+
+    rec_slots, rec_loss, rec_acc = [], [], []
+    done = 0
+    while done < slots:
+        chunk = min(cfg.eval_every, slots - done)
+        if exec_mode == "full":
+            carry = scan_slots(carry, worker_data,
+                               plan.op_ids[done:done + chunk],
+                               plan.active[done:done + chunk])
+        else:
+            carry = executor.run(carry, worker_data, plan, done, done + chunk)
+        done += chunk
+        u = weighted_average(carry[0], a)
+        rec_slots.append(done)
+        rec_loss.append(evaluate(loss_fn, u, eval_data))
+        rec_acc.append(evaluate(accuracy_fn, u, test_data))
+    u = weighted_average(carry[0], a)
+    return TimelineResult(np.asarray(rec_slots), np.asarray(rec_loss),
+                          np.asarray(rec_acc), u, plan)

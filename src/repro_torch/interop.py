@@ -16,7 +16,10 @@ appears, and `tree_to_numpy` stacks it back.  In a worker-stacked tree
 (every leaf with a leading worker axis W) the super-block axis is the
 second one, ``(W, n_sb, ...)``: pass ``worker_axis=True``.
 `train_state_from_numpy` carries a whole `MLLTrainState` (stacked params,
-``{"inner", "counts"}``, mixing state, step).
+``{"inner", "counts"}``, mixing state, step); `sim_carry_from_numpy` /
+`sim_carry_to_numpy` carry a simulator carry (stacked params, opt state,
+mixing state, PRNG key) both ways, the JAX key array becoming the
+`core.prng` key pair.
 
 `map_with_keys` walks a port tree in the JAX package's checkpoint key
 scheme (``::``-joined paths, NamedTuple fields spelled ``.params``), which
@@ -138,6 +141,28 @@ def train_state_from_numpy(state, device: str | torch.device | None = None):
                          conv(state.mix_state),
                          torch.tensor(int(np.asarray(state.step)),
                                       dtype=torch.int32))
+
+
+def sim_carry_from_numpy(carry, device: str | torch.device | None = None):
+    """The JAX package's simulator carry ``(stacked, opt_state, mix_state,
+    key)`` as numpy -> the port's carry on ``device`` (default ``cuda``);
+    the (2,) uint32 key becomes `core.prng`'s ``(k0, k1)`` pair."""
+    stacked, opt_state, mix_state, key = carry
+
+    def conv(t):
+        return tree_from_numpy(t, device, worker_axis=True)
+    k = np.asarray(key, np.uint32).reshape(2)
+    return (conv(stacked), conv(opt_state), conv(mix_state),
+            (int(k[0]), int(k[1])))
+
+
+def sim_carry_to_numpy(carry) -> tuple:
+    """Inverse of `sim_carry_from_numpy`: the JAX layout, as numpy."""
+    stacked, opt_state, mix_state, key = carry
+    return (tree_to_numpy(stacked, worker_axis=True),
+            tree_to_numpy(opt_state, worker_axis=True),
+            tree_to_numpy(mix_state, worker_axis=True),
+            np.asarray(key, np.uint32))
 
 
 # ------------------------------------------- flat, in checkpoint key scheme

@@ -1,4 +1,4 @@
-"""Public wrappers of the attention kernels (counterpart of
+"""Public wrappers of the hand-written kernels (counterpart of
 `repro/kernels/ops.py`).
 
 On a CUDA tensor each wrapper launches its hand-written kernel or raises;
@@ -15,19 +15,31 @@ PyTorch version in `ref`, and only then.
   two halves, for callers that need them apart.
 * `flash_decode` runs the paged flash-decode (``csrc/flash_decode.cu``);
   decode never differentiates.
+* `hier_mix` (one (W, C) leaf), `hier_mix_pytree` (one launch per leaf of
+  a stacked tree), `hier_mix_packed` (one launch over the packed
+  (W, sum C) buffer) and `hier_mix_packed_chunked` (one launch per
+  `packing.chunk_views` chunk of it) run the fused gated-SGD + averaging
+  kernel (``csrc/hier_mix.cu``) with a dense (W, W) operator or a
+  `GroupedOperator`.
 
 Each kernel's launches are counted in a plain integer attribute --
-``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``
-and ``flash_decode.launches`` -- raised by one right after each successful
-launch and nowhere else, so a run can show that its path went through the
-kernels.
+``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``,
+``flash_decode.launches``, and ``launches`` on each of the four hier_mix
+wrappers (with ``grouped_launches`` counting the `GroupedOperator` ones
+among them) -- raised by one right after each successful launch and
+nowhere else, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import hier_mix as hm
 from repro_torch.kernels import ref
+from repro_torch.kernels.hier_mix import GroupedOperator, \
+    make_grouped_operator  # noqa: F401  (re-exported, as in the JAX ops)
+from repro_torch.tree import tree_map
 
 
 def flash_attention_fwd_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,12 +127,89 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return out
 
 
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
-flash_decode.launches = 0
+# ------------------------------------------------------------------ hier mix
+def _mix(wrapper, x: torch.Tensor, g: torch.Tensor,
+         op: torch.Tensor | GroupedOperator, theta: torch.Tensor, eta: float,
+         out: torch.Tensor | None = None) -> torch.Tensor:
+    """One fused update + mix over (W, C) views: the kernel on a CUDA
+    tensor (counted on ``wrapper``), the plain version on a CPU one."""
+    grouped = isinstance(op, GroupedOperator)
+    if not x.is_cuda:
+        y = (ref.hier_mix_grouped_ref(x, g, op.scatter, op.broadcast, op.hub,
+                                      theta, eta) if grouped
+             else ref.hier_mix_ref(x, g, op, theta, eta))
+        return y if out is None else out.copy_(y)
+    theta = theta.to(x.device, torch.float32).contiguous()
+    y = hm.hier_mix_chunks(x, g, op, theta, eta, out=out)
+    wrapper.launches += 1
+    wrapper.grouped_launches += grouped
+    return y
+
+
+def hier_mix(x: torch.Tensor, g: torch.Tensor, t_op, theta: torch.Tensor,
+             eta: float) -> torch.Tensor:
+    """Fused gated-SGD + averaging for one (W, C) leaf (float32 or
+    bfloat16; float32 arithmetic, one rounding to the leaf's dtype)."""
+    return _mix(hier_mix, x, g, t_op, theta, eta)
+
+
+def hier_mix_pytree(stacked_params, stacked_grads, t_op,
+                    theta: torch.Tensor, eta: float):
+    """Fused gated-SGD + averaging over a whole stacked tree, one launch
+    PER LEAF (the JAX package's ``hier_mix_tree``; `hier_mix_packed` is
+    the single launch).  A new tree in the leaves' dtypes."""
+    def leaf(x, g):
+        w = x.shape[0]
+        y = _mix(hier_mix_pytree, x.reshape(w, -1), g.reshape(w, -1), t_op,
+                 theta, eta)
+        return y.reshape(x.shape)
+    return tree_map(leaf, stacked_params, stacked_grads)
+
+
+def hier_mix_packed(stacked_params, stacked_grads, op, theta: torch.Tensor,
+                    eta: float):
+    """Fused gated-SGD + averaging over a whole stacked tree in ONE launch
+    over the packed (W, sum C_i) float32 buffer (`core.packing`).  ``op``
+    is a dense (W, W) operator or a `GroupedOperator` (fused two_stage /
+    circulant mixing).  Bit for bit `hier_mix_pytree` for a dense ``op``.
+    The new tree's float32 leaves are views of the output buffer."""
+    spec = packing.pack_spec(stacked_params)
+    x = packing.pack(stacked_params, spec)
+    g = packing.pack(stacked_grads, spec)
+    out = _mix(hier_mix_packed, x, g, op, theta, eta)
+    return packing.unpack(out, spec)
+
+
+def hier_mix_packed_chunked(stacked_params, stacked_grads, op,
+                            theta: torch.Tensor, eta: float, *,
+                            num_chunks: int = 4):
+    """`hier_mix_packed` as one launch per `packing.chunk_views` column
+    chunk of the packed buffer (each writes its columns of one output
+    buffer; the launches run in order on the current stream).  Every
+    column's arithmetic is independent of the chunking, so the result is
+    the single launch's bit for bit."""
+    spec = packing.pack_spec(stacked_params)
+    x = packing.pack(stacked_params, spec)
+    g = packing.pack(stacked_grads, spec)
+    out = torch.empty_like(x)
+    for ch in packing.chunk_views(spec, num_chunks):
+        cols = slice(ch.lo, ch.hi)
+        _mix(hier_mix_packed_chunked, x[:, cols], g[:, cols], op, theta, eta,
+             out=out[:, cols])
+    return packing.unpack(out, spec)
+
+
+_COUNTED = (flash_attention, flash_attention_bwd, flash_decode, hier_mix,
+            hier_mix_pytree, hier_mix_packed, hier_mix_packed_chunked)
+_GROUPED = (hier_mix, hier_mix_pytree, hier_mix_packed,
+            hier_mix_packed_chunked)
 
 
 def reset_launches() -> None:
-    flash_attention.launches = 0
-    flash_attention_bwd.launches = 0
-    flash_decode.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
+    for fn in _GROUPED:
+        fn.grouped_launches = 0
+
+
+reset_launches()

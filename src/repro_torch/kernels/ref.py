@@ -2,16 +2,20 @@
 
 Counterpart of `repro/kernels/ref.py`.  These are what the kernel wrappers
 in `ops` run on CPU tensors, and what the CUDA kernels are held against on
-the card.  Both follow the kernels' numerics contract: inputs are upcast to
-float32, q is multiplied by ``1/sqrt(head_dim)`` before the dot, masked
-logits are ``NEG_INF = -1e30`` (not -inf), and a row with no live key gives
-``o = 0`` and ``lse = -1e30``; a decode lane with ``lengths == 0`` gives
-exact zeros.
+the card.  Both follow the kernels' numerics contract.  Attention: inputs
+are upcast to float32, q is multiplied by ``1/sqrt(head_dim)`` before the
+dot, masked logits are ``NEG_INF = -1e30`` (not -inf), and a row with no
+live key gives ``o = 0`` and ``lse = -1e30``; a decode lane with
+``lengths == 0`` gives exact zeros.  Fused update + mix: the contract of
+``csrc/hier_mix.cu`` (float32, ``u = x - (eta*theta) g`` with two
+roundings, every sum from 0 in index order, one rounding to the output
+dtype), so kernel and plain version agree bit for bit.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -137,3 +141,47 @@ def flash_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
     out, _ = _masked_softmax_out(s, mask[:, None, None, :], v,
                                  "bhgs,bshk->bhgk")
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def _update(x: torch.Tensor, g: torch.Tensor, theta: torch.Tensor,
+            eta: float) -> torch.Tensor:
+    """u = x - (eta * theta_i) * g_i in float32: eta rounded to float32,
+    then each product and the difference rounded on its own."""
+    a = theta.to(x.device, torch.float32) * float(np.float32(eta))
+    return x.float() - a[:, None] * g.float()
+
+
+def _contract(coef: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """out[j] = sum_r coef[r, j] * rows[r], the products added to a zero
+    float32 sum in order r = 0, 1, ... (the kernel's order)."""
+    out = torch.zeros((coef.shape[1],) + tuple(rows.shape[1:]),
+                      dtype=torch.float32, device=rows.device)
+    for r in range(rows.shape[0]):
+        out.add_(coef[r][:, None] * rows[r][None, :])
+    return out
+
+
+def hier_mix_ref(x: torch.Tensor, g: torch.Tensor, t_op: torch.Tensor,
+                 theta: torch.Tensor, eta: float) -> torch.Tensor:
+    """Fused gated-SGD + averaging (paper Eq. 5, K1):
+    out[j] = sum_i T[i, j] * (x[i] - eta * theta[i] * g[i]).
+    x, g: (W, C); t_op: (W, W); theta: (W,) -> (W, C) in x's dtype
+    (float32 arithmetic, as the TPU kernel; the JAX package's oracle
+    computes in x's dtype)."""
+    u = _update(x, g, theta, eta)
+    return _contract(t_op.to(u.device, torch.float32), u).to(x.dtype)
+
+
+def hier_mix_grouped_ref(x: torch.Tensor, g: torch.Tensor,
+                         scatter: torch.Tensor, broadcast: torch.Tensor,
+                         hub: torch.Tensor | None, theta: torch.Tensor,
+                         eta: float) -> torch.Tensor:
+    """The grouped form (K2): u as in `hier_mix_ref`, z = scatter @ u
+    (D, C), z <- H^T z when ``hub`` is given, out = broadcast @ z.
+    scatter (D, W), broadcast (W, D), hub (D, D) -> (W, C) in x's dtype."""
+    u = _update(x, g, theta, eta)
+    z = _contract(scatter.to(u.device, torch.float32).t(), u)
+    if hub is not None:
+        z = _contract(hub.to(u.device, torch.float32), z)
+    return _contract(broadcast.to(u.device, torch.float32).t(),
+                     z).to(x.dtype)

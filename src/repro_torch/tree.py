@@ -57,3 +57,40 @@ def tree_leaves(tree: Tree) -> list:
     leaves: list = []
     map_with_path(lambda _, x: leaves.append(x), tree)
     return leaves
+
+
+def tree_structure(tree: Tree) -> tuple:
+    """A hashable description of ``tree``'s containers (the leaves left
+    out): dict keys in their own order, list and tuple lengths, NamedTuple
+    types.  `tree_unflatten` rebuilds the tree from it."""
+    def walk(node):
+        if isinstance(node, dict):
+            return (dict, tuple((k, walk(v)) for k, v in node.items()))
+        if _is_namedtuple(node):
+            return (type(node), tuple(walk(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return (type(node), tuple(walk(v) for v in node))
+        return None
+    return walk(tree)
+
+
+def tree_unflatten(structure: tuple, leaves: list) -> Tree:
+    """Inverse of (`tree_structure`, `tree_leaves`): the leaves are taken
+    in `map_with_path` order (dict entries by sorted key)."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return next(it)
+        kind, children = node
+        if kind is dict:
+            built = {k: build(v) for k, v in sorted(children,
+                                                    key=lambda kv: kv[0])}
+            return {k: built[k] for k, _ in children}
+        if kind in (list, tuple):
+            return kind(build(c) for c in children)
+        return kind(*(build(c) for c in children))
+    out = build(structure)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out

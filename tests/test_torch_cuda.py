@@ -10,12 +10,16 @@ file imports no JAX, so it also runs on the GPU machine, which has none:
 Tolerances: both sides compute in float32 from the same inputs, so float32
 outputs differ by summation order only (atol 1e-4); bf16 outputs may round
 to neighbouring bf16 values (one bf16 ulp is 2^-7 relative; atol 2e-2 for
-|o| <= 2).  lse is float32 on both sides (atol 1e-3).
+|o| <= 2).  lse is float32 on both sides (atol 1e-3).  The fused update +
+mix kernel (``csrc/hier_mix.cu``) and its plain version share one
+arithmetic (separately rounded products and sums in one order), so they
+are held equal bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import packing
 from repro_torch.kernels import ops, ref
 
 
@@ -196,3 +200,144 @@ def test_cuda_harness_slot_trains_through_k3_and_k4(cuda_device):
         out[impl] = tree_leaves(state.params)
     for a, b in zip(out["flash"], out["plain"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------ fused update + mix
+def _mix_inputs(device, w, c, dtype, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(w, c, generator=g, device=device).to(dtype)
+    gr = torch.randn(w, c, generator=g, device=device).to(dtype)
+    t = torch.rand(w, w, generator=g, device=device)
+    t = t / t.sum(0, keepdim=True)
+    theta = (torch.rand(w, generator=g, device=device) > 0.3).float()
+    return x, gr, t, theta
+
+
+def _grouped_op(w, d, hub, device):
+    from repro_torch.core.hierarchy import MultiLevelNetwork
+    from repro_torch.kernels.hier_mix import make_grouped_operator
+    net = MultiLevelNetwork.build("ring", [w // d] * d)
+    return make_grouped_operator(net.subnet_of, net.v,
+                                 net.hub_net.h if hub else None,
+                                 device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,c,dtype", [
+    (3, 1, torch.float32), (4, 301, torch.float32), (13, 4101, torch.float32),
+    (100, 257, torch.float32), (4, 301, torch.bfloat16),
+    (8, 5000, torch.bfloat16)])
+def test_cuda_hier_mix_dense_equals_plain_bit_for_bit(cuda_device, w, c,
+                                                      dtype):
+    x, g, t, theta = _mix_inputs(cuda_device, w, c, dtype)
+    before = ops.hier_mix.launches
+    got = ops.hier_mix(x, g, t, theta, 0.05)
+    torch.cuda.synchronize()
+    assert ops.hier_mix.launches == before + 1
+    want = ref.hier_mix_ref(x, g, t, theta, 0.05)
+    assert got.dtype == dtype and got.shape == (w, c)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,d,hub", [(4, 2, False), (4, 2, True),
+                                     (8, 4, True), (100, 10, True)])
+def test_cuda_hier_mix_grouped_equals_plain_bit_for_bit(cuda_device, w, d,
+                                                        hub):
+    x, g, _, theta = _mix_inputs(cuda_device, w, 1031, torch.float32, 1)
+    op = _grouped_op(w, d, hub, cuda_device)
+    before = ops.hier_mix.grouped_launches
+    got = ops.hier_mix(x, g, op, theta, 0.1)
+    torch.cuda.synchronize()
+    assert ops.hier_mix.grouped_launches == before + 1
+    want = ref.hier_mix_grouped_ref(x, g, op.scatter, op.broadcast, op.hub,
+                                    theta, 0.1)
+    assert torch.equal(got, want), (got - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+def test_cuda_packed_per_leaf_and_chunked_agree_bit_for_bit(cuda_device,
+                                                            grouped):
+    """packed (K1b / K2) = per leaf (K1a) for a dense operator, chunked
+    (K5) = one launch, and the launch counters count each launch."""
+    g = torch.Generator(cuda_device).manual_seed(2)
+
+    def tree():
+        return {"a": torch.randn(8, 37, 11, generator=g, device=cuda_device),
+                "b": torch.randn(8, generator=g, device=cuda_device),
+                "h": torch.randn(8, 300, generator=g,
+                                 device=cuda_device).to(torch.bfloat16)}
+    params, grads = tree(), tree()
+    theta = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1.0], device=cuda_device)
+    op = (_grouped_op(8, 2, True, cuda_device) if grouped else
+          _mix_inputs(cuda_device, 8, 1, torch.float32)[2])
+    ops.reset_launches()
+    packed = ops.hier_mix_packed(params, grads, op, theta, 0.1)
+    chunked = ops.hier_mix_packed_chunked(params, grads, op, theta, 0.1,
+                                          num_chunks=3)
+    torch.cuda.synchronize()
+    n_chunks = len(packing.chunk_views(packing.pack_spec(params), 3))
+    assert ops.hier_mix_packed.launches == 1
+    assert ops.hier_mix_packed_chunked.launches == n_chunks == 3
+    assert ops.hier_mix_packed.grouped_launches == int(grouped)
+    for k in params:
+        assert packed[k].dtype == params[k].dtype
+        assert torch.equal(packed[k], chunked[k])
+    cpu = ops.hier_mix_packed({k: v.cpu() for k, v in params.items()},
+                              {k: v.cpu() for k, v in grads.items()},
+                              op if not grouped else _grouped_op(8, 2, True,
+                                                                 "cpu"),
+                              theta.cpu(), 0.1)
+    for k in params:
+        torch.testing.assert_close(packed[k].cpu(), cpu[k], atol=1e-6,
+                                   rtol=1e-6)
+    if not grouped:
+        perleaf = ops.hier_mix_pytree(params, grads, op, theta, 0.1)
+        torch.cuda.synchronize()
+        assert ops.hier_mix_pytree.launches == 3
+        for k in params:
+            assert torch.equal(packed[k], perleaf[k])
+
+
+@pytest.mark.cuda
+def test_cuda_timeline_runs_the_kernels(cuda_device):
+    """A deadline run with two_stage mixing on the card: one K2 launch per
+    event of the plan, the same u as on the CPU within float32 rounding
+    (atol 1e-5), and chunked = one launch bit for bit."""
+    from repro_torch.core import baselines, timeline
+    from repro_torch.core.hierarchy import MLLSchedule
+    from repro_torch.core.simulator import SimConfig
+    from repro_torch.data.pipeline import make_classification
+
+    data = make_classification(4, 64, dim=8, num_classes=3, test_size=64)
+
+    def loss_fn(p, b):
+        logits = b["x"] @ p["w"] + p["b"]
+        gold = torch.gather(logits, 1, b["y"].long()[:, None])[:, 0]
+        return (torch.logsumexp(logits, -1) - gold).mean()
+
+    net, _ = baselines.mll_sgd("ring", [2, 2], tau=2, q=2,
+                               worker_rates=[1.0, 0.8, 1.0, 0.6])
+    init = {"w": torch.zeros(8, 3), "b": torch.zeros(3)}
+    out = {}
+    for device, overlap in (("cpu", "none"), (cuda_device, "none"),
+                            (cuda_device, "chunked")):
+        ops.reset_launches()
+        out[(str(device), overlap)] = res = timeline.run_timeline(
+            loss_fn, loss_fn, init, data.worker_data(), data.full, data.test,
+            net, MLLSchedule(2, 2), slots=12, policy="deadline",
+            cfg=SimConfig(eta=0.1, batch_size=8, kernel="pallas",
+                          mixing="two_stage", overlap=overlap,
+                          overlap_chunks=2), seed=0, device=device)
+        events = int((res.plan.op_ids != 0).sum())
+        used = (ops.hier_mix_packed if overlap == "none"
+                else ops.hier_mix_packed_chunked)
+        assert used.grouped_launches == (events if device != "cpu" else 0)
+    cpu, gpu, chunked = out.values()
+    for k in ("w", "b"):
+        torch.testing.assert_close(gpu.final_avg_params[k].cpu(),
+                                   cpu.final_avg_params[k], atol=1e-5,
+                                   rtol=0)
+        assert torch.equal(gpu.final_avg_params[k],
+                           chunked.final_avg_params[k])

@@ -20,7 +20,7 @@ def _port_modules():
         m.name for m in pkgutil.walk_packages([str(PORT)], "repro_torch.")]
 
 
-SLICE_MODULES = (  # the serving slice and the trainer slice
+SLICE_MODULES = (  # the serving, trainer and simulator slices
     "repro_torch.serve.engine", "repro_torch.kernels.ops",
     "repro_torch.core.topology", "repro_torch.core.hierarchy",
     "repro_torch.core.prng", "repro_torch.core.protocol",
@@ -28,7 +28,9 @@ SLICE_MODULES = (  # the serving slice and the trainer slice
     "repro_torch.core.timeline", "repro_torch.optim.optimizers",
     "repro_torch.data.pipeline", "repro_torch.train.train_step",
     "repro_torch.train.checkpoint", "repro_torch.launch.harness",
-    "repro_torch.launch.train", "repro_torch.interop", "repro_torch.tree")
+    "repro_torch.launch.train", "repro_torch.interop", "repro_torch.tree",
+    "repro_torch.core.packing", "repro_torch.core.baselines",
+    "repro_torch.core.outer", "repro_torch.kernels.hier_mix")
 
 
 def test_every_module_of_the_port_is_checked():
