@@ -38,13 +38,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 10. resume -- at the smoke config (a full-width full-state checkpoint is
    ~30 GB on disk): killed at slot 4 and resumed = the uninterrupted run,
    bit for bit; `ServeEngine.from_checkpoint` serves that directory.
-11. sim-kernels -- the fused update + mix kernel (``csrc/hier_mix.cu``):
+11. xlstm-kernels -- the sLSTM scan forward K7 (h and the four
+   chunk-entering states) and backward K8 (dzx, dR, db, from K7's states)
+   against their plain versions, each output held to its own scale, at
+   xlstm-125m's training shape (B 4, T 512, H 4, hd 384, float32), the
+   smoke geometry (hd 128), ragged B and T, T < chunk, hd 16 and 32, H 1,
+   bf16 zx; K8 twice gives the same bits; times beside the bound at the
+   training shape.
+12. train-xlstm -- `run_training` trains xlstm-125m at full width (12
+   layers as 6 x (mLSTM, sLSTM), d_model 768, 4 heads of 384, bf16 with
+   float32 gate leaves, seeded random weights) with phase 7's W = 4 MLL
+   settings for 8 slots of 4 x 512 tokens per worker, through K7 and K8;
+   the launch counters show 6 K7 launches per worker and slot (and per
+   evaluation) and 6 K8 launches per worker and slot.  One more slot runs
+   under the profiler; the mLSTM layers and the LM head are timed apart.
+13. xlstm-parity -- one worker's gradients, ``impl="flash"`` against
+   ``impl="plain"``, at full width and depth with params and compute in
+   float32, held to ten times tighter limits than phase 8's; one float32
+   sLSTM layer at full width, flash against plain, to 1e-4.
+14. sim-kernels -- the fused update + mix kernel (``csrc/hier_mix.cu``):
    K1a (one leaf), K1b (packed, dense), K2 (packed, grouped) and K5
    (chunked) against their plain versions, bit for bit, at awkward shapes,
    bf16 leaves and the paper's W = 100, then at the packed qwen2-0.5b
-   fleet of phase 12 (W = 4, 494 M float32 columns); times beside the
+   fleet of phase 15 (W = 4, 494 M float32 columns); times beside the
    bound, the plain version and the unfused torch pair.
-12. sim -- qwen2-0.5b at full width (24 layers, float32 params, bf16
+15. sim -- qwen2-0.5b at full width (24 layers, float32 params, bf16
    compute, seeded random weights) as W = 4 workers through
    `timeline.run_timeline`: (a) deadline + two_stage (K2), (b) barrier +
    dense (K1b), (c) gossip (K1b, masked operators), (d) = (a) with
@@ -53,10 +71,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    slot) and per leaf (K1a), the same u as (b) bit for bit; the launch
    counts asserted from each plan; slot times, an event split into pack /
    kernel / unpack, the device busy share of an event slot.
-13. sim-paper -- the paper's logistic regression at W = 100 in 10
+16. sim-paper -- the paper's logistic regression at W = 100 in 10
    sub-networks through `simulate` (K1b) and `run_timeline` with two_stage
    mixing (K2 at D = 10), kernel="pallas" against kernel="xla".
-14. report -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
+17. report -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or away from the repository, it exits non-zero and prints no
@@ -64,7 +82,9 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -91,9 +111,12 @@ from repro_torch.data.pipeline import (make_classification,  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_mix as hm  # noqa: E402
+from repro_torch.kernels import slstm_scan as ss  # noqa: E402
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.serve.engine import (PROMPT_PAD, EngineConfig,  # noqa: E402
                                       ServeEngine, poisson_arrivals)
@@ -655,31 +678,41 @@ def _train_loop(**kw) -> TrainLoopConfig:
         impl="flash"), **kw))
 
 
-def phase_train(cfg, device: torch.device, smi: str):
+def _layers_of(cfg, kind: str) -> int:
+    return cfg.num_super_blocks * cfg.pattern.count(kind)
+
+
+def phase_train(cfg, device: torch.device, smi: str, *, phase: str = "train",
+                seq_len: int = 128):
     mll = MLLConfig(**TRAIN_MLL)
-    loop = _train_loop()
+    loop = _train_loop(seq_len=seq_len)
     logs = []
     torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launches()
     t0 = time.perf_counter()
-    with BwdRecorder() as rec, SlotClock() as clock:
+    with BwdRecorder() as rec, SLSTMRecorder() as srec, SlotClock() as clock:
         out = run_training(cfg, mll, loop, log=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": ops.flash_attention.launches,
                 "flash_attention_bwd": ops.flash_attention_bwd.launches,
-                "flash_decode": ops.flash_decode.launches}
+                "flash_decode": ops.flash_decode.launches,
+                "slstm_scan": ops.slstm_scan.launches,
+                "slstm_scan_bwd": ops.slstm_scan_bwd.launches}
     for line in logs:
-        log("train", line)
+        log(phase, line)
     plan, hist = out["plan"], out["history"]
     w = out["network"].num_workers
     grad_slots = sum(1 for s in range(plan.slots) if not (
         plan.gate_mode == "forced" and not plan.active[s].any()))
     n_evals = len(hist["step"])
-    want = {"flash_attention": cfg.num_layers * (w * grad_slots + n_evals),
-            "flash_attention_bwd": cfg.num_layers * w * grad_slots,
-            "flash_decode": 0}
-    if launches != want:
+    n_attn, n_slstm = _layers_of(cfg, "attn"), _layers_of(cfg, "slstm")
+    want = {"flash_attention": n_attn * (w * grad_slots + n_evals),
+            "flash_attention_bwd": n_attn * w * grad_slots,
+            "flash_decode": 0,
+            "slstm_scan": n_slstm * (w * grad_slots + n_evals),
+            "slstm_scan_bwd": n_slstm * w * grad_slots}
+    if launches != want or sum(launches.values()) == 0:
         raise AssertionError(f"launches {launches}, expected {want}")
     if not np.isfinite(hist["avg_loss"]).all() or not np.isfinite(
             hist["loss"]).all():
@@ -688,13 +721,13 @@ def phase_train(cfg, device: torch.device, smi: str):
     seq_tokens = loop.batch_per_worker * loop.seq_len
     counts = out["train_state"].opt_state["counts"].tolist()
     steady = secs[1:]
-    log("train", f"plan {plan.gate_mode}: {len(plan.events)} events "
+    log(phase, f"plan {plan.gate_mode}: {len(plan.events)} events "
         f"{[(e.slot, e.kind) for e in plan.events]}; counts {counts}")
-    log("train", f"u_k loss {hist['avg_loss']} at slots {hist['step']}; "
+    log(phase, f"u_k loss {hist['avg_loss']} at slots {hist['step']}; "
         f"worker loss {hist['loss']}")
     # every worker computes its gradients each slot (W*B*S processed
     # tokens); only the gated-in ones apply them (sum(counts)*B*S applied)
-    log("train", f"seconds per slot {secs}; first slot {secs[0]} s, steady "
+    log(phase, f"seconds per slot {secs}; first slot {secs[0]} s, steady "
         f"mean {sum(steady) / len(steady)} s; processed tokens/s per harness "
         f"slot (W*B*S over the slot's wall) steady "
         f"{w * seq_tokens * len(steady) / sum(steady)}; applied tokens "
@@ -705,17 +738,18 @@ def phase_train(cfg, device: torch.device, smi: str):
         f"run_training wall {wall} s; peak memory "
         f"{torch.cuda.max_memory_allocated(device) / 2**30} GiB; launches "
         f"{launches} on {smi}")
-    return out, mll, launches, rec
+    return out, mll, launches, rec, srec
 
 
-def phase_train_profile(cfg, out, mll, device: torch.device, smi: str):
+def phase_train_profile(cfg, out, mll, device: torch.device, smi: str, *,
+                        phase: str = "train", seq_len: int = 128):
     """Two more local slots of the trained fleet: the first timed on the
     host clock without the profiler, the second under `torch.profiler` for
-    the device's busy time and the top device time."""
+    the device's busy time, the top device time and the sLSTM kernels'."""
     from torch.profiler import ProfilerActivity, profile
     st = build_state(mll, out["network"], device=device)
     h = harness_mod.TrainHarness(cfg, mll, st, gate_mode="bernoulli")
-    tokens = torch.randint(1, cfg.vocab_size, (4, 4, 129),
+    tokens = torch.randint(1, cfg.vocab_size, (4, 4, seq_len + 1),
                            generator=torch.Generator().manual_seed(2))
     batch = {"tokens": tokens[..., :-1].to(device),
              "labels": tokens[..., 1:].to(device)}
@@ -740,46 +774,80 @@ def phase_train_profile(cfg, out, mll, device: torch.device, smi: str):
     busy_ms = sum(device_us.values()) / 1e3
     n_ops = sum(1 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
-    log("train", f"local slot (W=4 fwd+bwd+update): wall {wall_ms} ms "
-        f"(no profiler; {prof_ms} ms under it); device busy {busy_ms} ms "
-        f"({100 * busy_ms / wall_ms}% of the wall), {n_ops} device "
-        f"operations; top: "
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    slstm_ms = {k: sum(us for name, us in device_us.items() if k in name) / 1e3
+                for k in ("slstm_fwd_kernel", "slstm_bwd_kernel",
+                          "slstm_dr_kernel")}
+    log(phase, f"local slot (W=4 fwd+bwd+update, 4 x {seq_len} tokens per "
+        f"worker): wall {wall_ms} ms (no profiler; {prof_ms} ms under it); "
+        f"device busy {busy_ms} ms ({100 * busy_ms / wall_ms}% of the wall), "
+        f"{n_ops} device operations; sLSTM kernels {slstm_ms} ms; top: "
         + "; ".join(f"{name[:50]} {us / 1e3} ms" for name, us in top)
         + f" on {smi}")
     return state
 
 
-def phase_train_parity(cfg, worker0: dict, device: torch.device) -> None:
-    """Full-width gradients of one worker on one batch, flash vs plain."""
-    tokens = torch.randint(1, cfg.vocab_size, (1, 4, 129),
+def _parity_batch(cfg, seq_len: int, device: torch.device) -> dict:
+    tokens = torch.randint(1, cfg.vocab_size, (1, 4, seq_len + 1),
                            generator=torch.Generator().manual_seed(3))
-    batch = {"tokens": tokens[..., :-1].to(device),
-             "labels": tokens[..., 1:].to(device)}
-    one = tree_map(lambda x: x[None], worker0)
-    gf, mf = per_worker_grads(one, batch, cfg, impl="flash")
-    gp, mp = per_worker_grads(one, batch, cfg, impl="plain")
-    names, rel = [], []
+    return {"tokens": tokens[..., :-1].to(device),
+            "labels": tokens[..., 1:].to(device)}
 
-    def leaf(key, block, a, b):
-        a, b = a.float(), b.float()
+
+def _worker_grads(cfg, worker0: dict, batch: dict, impl: str
+                  ) -> tuple[list, list, float]:
+    """-> (leaf names, gradient leaves, loss) of one worker on ``batch``."""
+    grads, m = per_worker_grads(tree_map(lambda x: x[None], worker0), batch,
+                                cfg, impl=impl)
+    names, leaves = [], []
+
+    def leaf(key, block, x):
         names.append(key if block is None else f"{key}[{block}]")
-        rel.append(((a - b).norm() / b.norm().clamp(min=1e-30)).item())
-    flat_p = []
-    interop.map_with_keys(lambda k, blk, x: flat_p.append(x), gp)
-    it = iter(flat_p)
-    interop.map_with_keys(lambda k, blk, x: leaf(k, blk, x, next(it)), gf)
-    loss_diff = abs(mf["loss"].item() - mp["loss"].item())
+        leaves.append(x[0].float())
+    interop.map_with_keys(leaf, grads)
+    return names, leaves, m["loss"].item()
+
+
+def _rel_errors(got: list, want: list) -> list:
+    return [((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+            for a, b in zip(got, want)]
+
+
+def grad_parity(cfg, worker0: dict, device: torch.device, seq_len: int
+                ) -> tuple[list, list, float, float]:
+    """Gradients of one worker on one batch of 4 x ``seq_len`` tokens,
+    flash vs plain.  -> (leaf names, relative norm error per leaf, flash
+    loss, plain loss)."""
+    batch = _parity_batch(cfg, seq_len, device)
+    names, gf, lf = _worker_grads(cfg, worker0, batch, "flash")
+    _, gp, lp = _worker_grads(cfg, worker0, batch, "plain")
+    return names, _rel_errors(gf, gp), lf, lp
+
+
+def phase_train_parity(cfg, worker0: dict, device: torch.device, *,
+                       phase: str = "train-parity", seq_len: int = 128,
+                       report: tuple[str, ...] = (),
+                       limits: tuple[float, float] = (0.05, 0.25)) -> None:
+    """Full-width gradients of one worker on one batch, flash vs plain,
+    held to ``limits`` (the median and the largest relative error of a
+    leaf) and a loss |diff| of 0.05; the leaves whose key holds a name in
+    ``report`` are printed apart."""
+    names, rel, lf, lp = grad_parity(cfg, worker0, device, seq_len)
+    loss_diff = abs(lf - lp)
     order = np.argsort(rel)[::-1]
-    log("train-parity", f"one worker, 4 x 128 tokens: loss flash "
-        f"{mf['loss'].item()} plain {mp['loss'].item()} (|diff| {loss_diff});"
-        f" {len(rel)} leaves, relative grad error median "
+    log(phase, f"{cfg.name} ({cfg.num_layers} layers, {cfg.compute_dtype}), "
+        f"one worker, 4 x {seq_len} tokens: loss flash {lf} plain {lp} "
+        f"(|diff| {loss_diff}); {len(rel)} leaves, relative grad error median "
         f"{float(np.median(rel))} max {max(rel)}; largest: " + ", ".join(
             f"{names[i]} {rel[i]:.4f}" for i in order[:4]))
-    if not all(np.isfinite(rel)) or max(rel) > 0.25 or np.median(rel) > 0.05 \
-            or loss_diff > 0.05:
-        raise AssertionError("flash and plain gradients disagree beyond bf16 "
-                             "noise (limits: max 0.25, median 0.05, loss 0.05)")
+    for key in report:
+        log(phase, f"{key}: " + ", ".join(
+            f"{n} {r:.3e}" for n, r in zip(names, rel) if key in n))
+    if (not all(np.isfinite(rel)) or max(rel) > limits[1]
+            or np.median(rel) > limits[0] or loss_diff > 0.05):
+        raise AssertionError(
+            f"flash and plain gradients disagree beyond rounding noise "
+            f"(limits: median {limits[0]}, max {limits[1]}, loss 0.05)")
 
 
 def phase_serve_uk(cfg, u_k: dict, device: torch.device) -> None:
@@ -843,6 +911,249 @@ def phase_resume(device: torch.device) -> None:
             raise AssertionError("from_checkpoint did not serve")
         log("resume", f"ServeEngine.from_checkpoint served {out['generated']}"
             f" tokens for {len(prompts)} requests")
+
+
+# ------------------------------------------------------ K7 / K8 measurement
+# (b, t, h, hd, block_b, chunk, zx dtype) for the K7 / K8 checks: the
+# training path's shape (xlstm-125m: B 4, T 512, H 4, hd 384), the smoke
+# geometry (hd 128), then B not a multiple of block_b, T not a multiple of
+# chunk, T < chunk, hd 16 and 32, H = 1, 5 and 8 rows in a block, bf16 zx
+SLSTM_CASES = [(4, 512, 4, 384, 8, 128, torch.float32),
+               (4, 512, 4, 128, 8, 128, torch.float32),
+               (3, 200, 2, 32, 2, 64, torch.float32),
+               (2, 21, 1, 16, 8, 32, torch.float32),
+               (8, 64, 4, 16, 8, 16, torch.float32),
+               (5, 100, 4, 384, 8, 128, torch.bfloat16),
+               (2, 24, 2, 16, 2, 8, torch.bfloat16)]
+# h, the four bounds, dzx, dR and db, kernel vs plain, each held to its own
+# scale as K4's outputs are (`_close_scaled`).  Both sides compute in
+# float32 from the same inputs; they differ by the order of the hd- and
+# 4hd-term recurrent sums, of the B*T-term dR / db sums, and by the last
+# bits of expf / log1pf / tanhf, carried through up to 512 dependent steps:
+# 1e-4.  An output in bf16 (h, dzx for a bf16 zx) adds one rounding (2^-9
+# relative): 1e-2.  A wrong kernel (a gate zeroed, the max routing dropped,
+# the chunks walked in the wrong order) moves every output by O(1).
+SLSTM_TOL = BWD_TOL
+
+
+def _close_state(got: torch.Tensor, want: torch.Tensor, tol: dict
+                 ) -> tuple[float, float]:
+    """`_close_scaled`, except that a state that is exactly zero (h, c and m
+    entering the first chunk) must come back exactly zero."""
+    if want.abs().max().item() == 0.0:
+        if not torch.equal(got, want):
+            raise AssertionError("a zero state came back non-zero")
+        return 0.0, 0.0
+    return _close_scaled(got, want, tol)
+
+
+def measure_slstm(timer: Timer, zx, r, b, dh, block_b: int, chunk: int,
+                  timed: bool) -> tuple[dict, dict]:
+    """K7 (with residuals) and K8 against their plain versions on the same
+    inputs (K8 from K7's bounds): errors, K8's bits over two runs, and with
+    ``timed`` the kernel, plain and bound times."""
+    kw = dict(block_b=block_b, chunk=chunk)
+    f32 = SLSTM_TOL[torch.float32]
+    tol = SLSTM_TOL[zx.dtype]
+    h, bounds = ops.slstm_scan_fwd_res(zx, r, b, **kw)
+    want_h, want_bounds = ref.slstm_scan_fwd_res_ref(zx, r, b, **kw)
+    fwd = [_close_scaled(h, want_h, tol)] + [
+        _close_state(g, w, f32) for g, w in zip(bounds, want_bounds)]
+    got = ops.slstm_scan_bwd(zx, r, b, bounds, dh, **kw)
+    again = ops.slstm_scan_bwd(zx, r, b, bounds, dh, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("K8 gave other bits on a second run")
+    want = ref.slstm_scan_bwd_ref(zx, r, b, bounds, dh, **kw)
+    bwd = [_close_scaled(got[0], want[0], tol),
+           _close_scaled(got[1], want[1], f32),
+           _close_scaled(got[2], want[2], f32)]
+    bsz, t, nh, hd4 = zx.shape
+    es = zx.element_size()
+    bound_bytes = 4 * sum(x.numel() for x in bounds)
+    rb_bytes = 4 * (r.numel() + b.numel())
+    # the recurrent products: 2 B T H hd 4hd float32 operations a pass
+    flops = 2 * bsz * t * nh * (hd4 // 4) * hd4
+    k7 = {"max_abs_err": max(e for e, _ in fwd),
+          "rel_err": max(x for _, x in fwd),
+          "max_abs_out": [x.abs().max().item() for x in (want_h,) + want_bounds],
+          "tolerance": {"h": tol, "bounds": f32}}
+    k8 = {"max_abs_err": max(e for e, _ in bwd),
+          "rel_err": max(x for _, x in bwd),
+          "max_abs_out": [x.abs().max().item() for x in want],
+          "tolerance": {"dzx": tol, "dR, db": f32}, "deterministic": True}
+    if timed:
+        # K7: zx, R, b read; h and the bounds written
+        b7 = _bound(es * (zx.numel() + h.numel()) + rb_bytes + bound_bytes,
+                    flops, torch.float32)
+        # K8: zx, dh, R, b, bounds read; dzx, dR, db written; the forward
+        # recomputed, dh = dz R^T and dR = h^T dz
+        b8 = _bound(es * (2 * zx.numel() + dh.numel()) + 2 * rb_bytes
+                    + bound_bytes, 3 * flops, torch.float32)
+        k7.update(ms=timer.ms(lambda: ops.slstm_scan_fwd_res(zx, r, b, **kw)),
+                  plain_ms=timer.ms(lambda: ref.slstm_scan_fwd_res_ref(
+                      zx, r, b, **kw), reps=3),
+                  bound_ms=b7[0], bound_by=b7[1], library_ms=None)
+        k8.update(ms=timer.ms(lambda: ops.slstm_scan_bwd(zx, r, b, bounds, dh,
+                                                         **kw)),
+                  plain_ms=timer.ms(lambda: ref.slstm_scan_bwd_ref(
+                      zx, r, b, bounds, dh, **kw), reps=3),
+                  bound_ms=b8[0], bound_by=b8[1], library_ms=None)
+    return k7, k8
+
+
+def phase_xlstm_kernels(timer: Timer, device: torch.device) -> None:
+    gen = torch.Generator(device).manual_seed(4)
+    for i, (b, t, h, hd, bb, chunk, dtype) in enumerate(SLSTM_CASES):
+        def rnd(*shape, scale=1.0):
+            return scale * torch.randn(*shape, generator=gen, device=device)
+        zx = rnd(b, t, h, 4 * hd).to(dtype)
+        r = rnd(h, hd, 4 * hd, scale=1.0 / math.sqrt(hd))
+        bias = rnd(h, 4 * hd, scale=0.1)
+        dh = rnd(b, t, h, hd).to(dtype)
+        k7, k8 = measure_slstm(timer, zx, r, bias, dh, bb, chunk, timed=i == 0)
+        case = (f"{str(dtype)[6:]} B={b} T={t} H={h} hd={hd} block_b={bb} "
+                f"chunk={chunk}")
+        log("xlstm-kernels", f"K7 slstm_scan {case}: {json.dumps(k7)}")
+        log("xlstm-kernels", f"K8 slstm_scan_bwd {case}: {json.dumps(k8)}")
+
+
+class SLSTMRecorder:
+    """Keeps the first K8 call of the main path (its inputs: the zx, R and b
+    that K7 ran on, and dh), below the counting wrapper, so the launch
+    counts are untouched."""
+
+    def __init__(self):
+        self.call = None
+        self._bwd = ss.slstm_scan_bwd
+
+    def __enter__(self):
+        def bwd(zx, r, b, bounds, dh, **kw):
+            if self.call is None:
+                self.call = (zx, r, b, dh, kw)
+            return self._bwd(zx, r, b, bounds, dh, **kw)
+        ss.slstm_scan_bwd = bwd
+        return self
+
+    def __exit__(self, *exc):
+        ss.slstm_scan_bwd = self._bwd
+
+
+def xlstm_slot_parts(cfg, worker0: dict, timer: Timer, smi: str) -> None:
+    """Device time of one worker's mLSTM layers (the quadratic form, fwd +
+    bwd, x num_super_blocks) and of the LM head with its cross entropy
+    (fwd + bwd), each on its own at the slot's shapes (4 x 512 tokens)."""
+    device = worker0["embed"]["table"].device
+    gen = torch.Generator(device).manual_seed(7)
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = torch.randn(4, 512, cfg.d_model, generator=gen, device=device) \
+        .to(cdt).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
+                           device=device)
+    mix = {k: v.detach().requires_grad_()
+           for k, v in worker0["blocks"][0]["pos0"]["mixer"].items()}
+    embed = {k: v.detach().requires_grad_()
+             for k, v in worker0["embed"].items()}
+    head_w = embed["table" if cfg.tie_embeddings else "lm_head"]
+
+    def mlstm():
+        y = xlstm_mod.mlstm_train(mix, x, cfg)
+        torch.autograd.grad(y.float().square().mean(), [x, *mix.values()])
+
+    def head():
+        logits = layers_mod.lm_logits(embed, x, cfg)
+        loss = F.cross_entropy(logits.float().reshape(-1, cfg.vocab_size),
+                               labels.reshape(-1))
+        torch.autograd.grad(loss, [x, head_w])
+    n = cfg.num_super_blocks
+    log("train-xlstm", f"one worker's slot parts, fwd + bwd at 4 x 512 "
+        f"tokens: {n} mLSTM layers {n * timer.ms(mlstm, reps=3)} ms, LM head "
+        f"+ cross entropy {timer.ms(head, reps=3)} ms on {smi}")
+
+
+def phase_xlstm_parity(cfg, worker0: dict, device: torch.device) -> None:
+    """Flash vs plain gradients of one trained worker at full width and
+    depth (6 super-blocks, 4 x 512 tokens), with the params and the
+    compute in float32, held ten times tighter than phase train-parity.
+
+    The stack multiplies a relative change of the sLSTM outputs by 100-300
+    in the gradient (`tools/xlstm_grad_conditioning.py`; PERF.md).  K7 /
+    K8 and the cell loop differ by float32 rounding (~1e-7), so their
+    gradients agree to ~5e-4 (median) and ~7e-3 (the worst leaf): limits
+    5e-3 and 5e-2.  In bf16 every operation rounds at 2^-9, which the
+    same gain turns into gradients ~100% apart, with or without the
+    kernels; that comparison holds nothing."""
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    phase_train_parity(f32, tree_map(lambda x: x.float(), worker0), device,
+                       phase="xlstm-parity", seq_len=512,
+                       report=("r_gates", "b_gates", "w_gates"),
+                       limits=(5e-3, 5e-2))
+
+
+def phase_slstm_layer_f32(device: torch.device) -> None:
+    """One sLSTM layer at xlstm-125m's width in float32 (B 2, T 512):
+    output and gradients, ``impl="flash"`` (K7 + K8) against ``"plain"``
+    (the cell loop).  Both compute in float32 and differ by the
+    recurrence's summation order and the last bits of the math functions
+    through 512 steps: every output within 1e-4 of its scale (relative
+    norm error <= 1e-4)."""
+    cfg = dataclasses.replace(get_config("xlstm-125m"), param_dtype="float32",
+                              compute_dtype="float32")
+    gen = torch.Generator(device).manual_seed(6)
+    p = xlstm_mod.init_slstm(gen, cfg)
+    p["b_gates"] = 0.1 * torch.randn(p["b_gates"].shape, generator=gen,
+                                     device=device)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen, device=device)
+    wy = torch.randn(2, 512, cfg.d_model, generator=gen, device=device)
+
+    def run(impl):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        y = xlstm_mod.slstm_train(leaves, xx, cfg, impl=impl)
+        grads = torch.autograd.grad((y * wy).sum(), [xx, *leaves.values()])
+        return [y.detach(), *grads]
+    before = (ops.slstm_scan.launches, ops.slstm_scan_bwd.launches)
+    got = run("flash")
+    if (ops.slstm_scan.launches, ops.slstm_scan_bwd.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError("the flash layer did not run K7 and K8 once")
+    want = run("plain")
+    names = ["y", "dx"] + [f"d{k}" for k in p]
+    tol = SLSTM_TOL[torch.float32]
+    errs = {n: _close_scaled(g, w, tol) for n, g, w in zip(names, got, want)}
+    log("xlstm-parity", "one sLSTM layer at xlstm-125m width, float32, B 2 x "
+        "T 512, flash vs plain (max abs err, relative norm error): "
+        + ", ".join(f"{n} {e[0]:.3e} {e[1]:.3e}" for n, e in errs.items())
+        + f"; tolerance {tol}")
+
+
+def phase_xlstm(timer: Timer, device: torch.device, smi: str
+                ) -> tuple[dict, dict, dict]:
+    """Phases xlstm-kernels, train-xlstm and xlstm-parity, then K7 and K8
+    at the training path's inputs.  -> (train-xlstm launches, K7, K8)."""
+    phase_xlstm_kernels(timer, device)
+    xcfg = get_config("xlstm-125m")
+    xtrained, xmll, xl_launches, _, srec = phase_train(
+        xcfg, device, smi, phase="train-xlstm", seq_len=512)
+    xstate = phase_train_profile(xcfg, xtrained, xmll, device, smi,
+                                 phase="train-xlstm", seq_len=512)
+    xworker0 = tree_map(lambda x: x[0].clone(), xstate.params)
+    del xtrained, xstate
+    torch.cuda.empty_cache()
+    xlstm_slot_parts(xcfg, xworker0, timer, smi)
+    phase_xlstm_parity(xcfg, xworker0, device)
+    del xworker0
+    phase_slstm_layer_f32(device)
+    zx, r, b, dh, kw = (x.detach() if torch.is_tensor(x) else x
+                        for x in srec.call)
+    k7, k8 = measure_slstm(timer, zx, r, b, dh, kw["block_b"], kw["chunk"],
+                           timed=True)
+    log("report", f"K7 / K8 at the training path's shapes zx "
+        f"{tuple(zx.shape)} {str(zx.dtype)[6:]}, block_b {kw['block_b']}, "
+        f"chunk {kw['chunk']}: K7 {json.dumps(k7)}; K8 {json.dumps(k8)}")
+    del srec, zx, r, b, dh
+    torch.cuda.empty_cache()
+    return xl_launches, k7, k8
 
 
 # ------------------------------------------------ K1/K2/K5 measurement
@@ -1428,7 +1739,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_train_kernels(timer, device)
-    trained, mll, train_launches, bwd_rec = phase_train(cfg, device, smi)
+    trained, mll, train_launches, bwd_rec, _ = phase_train(cfg, device, smi)
     state = phase_train_profile(cfg, trained, mll, device, smi)
     worker0 = tree_map(lambda x: x[0].clone(), state.params)
     u_k = trained["avg_params"]
@@ -1449,6 +1760,8 @@ def main() -> int:
         f"{tuple(k.shape)} {str(q.dtype)[6:]}: {json.dumps(k4)}")
     del q, k, v, o, lse, do, bwd_rec
     torch.cuda.empty_cache()
+
+    xl_launches, k7, k8 = phase_xlstm(timer, device, smi)
 
     mix = phase_sim_kernels(timer, device, smi)
     sim_launches = phase_sim(device, smi)
@@ -1487,6 +1800,18 @@ def main() -> int:
              launches_by_path={
                  "train": train_launches["flash_attention_bwd"],
                  "sim-qwen2": sim_launches["K4"]}, **k4),
+        dict(name="slstm_scan", route="cuda",
+             source="src/repro_torch/csrc/slstm_scan.cu",
+             replaces="src/repro/kernels/slstm_scan.py:118",
+             launches=xl_launches["slstm_scan"],
+             launches_by_path={"train-xlstm": xl_launches["slstm_scan"]},
+             **k7),
+        dict(name="slstm_scan_bwd", route="cuda",
+             source="src/repro_torch/csrc/slstm_scan.cu",
+             replaces="src/repro/kernels/slstm_scan.py:292",
+             launches=xl_launches["slstm_scan_bwd"],
+             launches_by_path={"train-xlstm": xl_launches["slstm_scan_bwd"]},
+             **k8),
         mix_entry("K1a", "hier_mix_chunks (K1a, per leaf)", 94),
         mix_entry("K1b", "hier_mix_packed dense (K1b)", 202),
         mix_entry("K2", "hier_mix_packed grouped (K2)", 72),

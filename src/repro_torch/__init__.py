@@ -14,15 +14,18 @@ Ported so far:
   ``core.protocol``: the two-level network, readiness-policy plans, the
   gated inner optimizers, dense / two_stage / ppermute mixing, full
   protocol checkpoints in the JAX on-disk format, and u_k handed to
-  ``ServeEngine``;
+  ``ServeEngine``; it trains the attention transformers and xLSTM (mLSTM
+  and sLSTM blocks);
 * the simulator and the timeline executors -- ``simulate`` (the paper's
   Algorithm 1 in matrix form) and ``run_timeline`` (readiness-policy plans
   on a slot clock, event-sparse or every slot), with packing
   (``core.packing``), the paper's baselines and the outer optimizer;
-* four hand-written Hopper kernels: ``csrc/flash_fwd.cu`` (flash-attention
-  forward), ``csrc/flash_bwd.cu`` (its backward), ``csrc/flash_decode.cu``
-  (paged flash-decode) and ``csrc/hier_mix.cu`` (the fused gated-SGD +
-  averaging update, dense and grouped, per leaf, packed or chunked).
+* five sources of hand-written Hopper kernels: ``csrc/flash_fwd.cu``
+  (flash-attention forward), ``csrc/flash_bwd.cu`` (its backward),
+  ``csrc/flash_decode.cu`` (paged flash-decode), ``csrc/hier_mix.cu`` (the
+  fused gated-SGD + averaging update, dense and grouped, per leaf, packed
+  or chunked) and ``csrc/slstm_scan.cu`` (the sLSTM recurrence forward,
+  its backward and the backward's dR / db reduction).
 
 Device rule: entry points that create tensors (``init_model``,
 ``init_paged_state``, ``ServeEngine``, ``state_from_network``,

@@ -15,6 +15,14 @@ PyTorch version in `ref`, and only then.
   two halves, for callers that need them apart.
 * `flash_decode` runs the paged flash-decode (``csrc/flash_decode.cu``);
   decode never differentiates.
+* `slstm_scan` is differentiable through the kernels, as the JAX
+  package's `jax.custom_vjp` is: a `torch.autograd.Function` whose forward
+  launches the sLSTM scan forward (``csrc/slstm_scan.cu``) with the
+  chunk-boundary residuals and saves (zx, r_gates, b_gates, bounds), and
+  whose backward launches the reverse-time scan and its dR / db reduction
+  (same file).  With no gradient to record it launches the forward
+  without residuals.  `slstm_scan_fwd_res` and `slstm_scan_bwd` are the
+  two halves.
 * `hier_mix` (one (W, C) leaf), `hier_mix_pytree` (one launch per leaf of
   a stacked tree), `hier_mix_packed` (one launch over the packed
   (W, sum C) buffer) and `hier_mix_packed_chunked` (one launch per
@@ -24,7 +32,8 @@ PyTorch version in `ref`, and only then.
 
 Each kernel's launches are counted in a plain integer attribute --
 ``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``,
-``flash_decode.launches``, and ``launches`` on each of the four hier_mix
+``flash_decode.launches``, ``slstm_scan.launches`` (both forward
+variants), ``slstm_scan_bwd.launches``, and ``launches`` on each of the four hier_mix
 wrappers (with ``grouped_launches`` counting the `GroupedOperator` ones
 among them) -- raised by one right after each successful launch and
 nowhere else, so a run can show that its path went through the kernels.
@@ -37,6 +46,7 @@ from repro_torch.core import packing
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hier_mix as hm
 from repro_torch.kernels import ref
+from repro_torch.kernels import slstm_scan as ss
 from repro_torch.kernels.hier_mix import GroupedOperator, \
     make_grouped_operator  # noqa: F401  (re-exported, as in the JAX ops)
 from repro_torch.tree import tree_map
@@ -127,6 +137,77 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------- slstm scan
+def slstm_scan_fwd_res(zx: torch.Tensor, r_gates: torch.Tensor,
+                       b_gates: torch.Tensor, *, block_b: int = 8,
+                       chunk: int = 128):
+    """zx (B, T, H, 4hd), r_gates (H, hd, 4hd), b_gates (H, 4hd) ->
+    (h (B, T, H, hd) in zx's dtype, (h, c, n, m) entering each chunk, each
+    (Bp, T/chunk, H, hd) float32).  Not differentiable itself (gradients go
+    through `slstm_scan`)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (zx, r_gates, b_gates)):
+        raise ValueError(
+            "slstm_scan_fwd_res records no gradient; call slstm_scan to "
+            "differentiate through the kernels")
+    if not zx.is_cuda:
+        return ref.slstm_scan_fwd_res_ref(zx, r_gates, b_gates,
+                                          block_b=block_b, chunk=chunk)
+    out = ss.slstm_scan_fwd_res(zx, r_gates, b_gates, block_b=block_b,
+                                chunk=chunk)
+    slstm_scan.launches += 1
+    return out
+
+
+def slstm_scan_bwd(zx: torch.Tensor, r_gates: torch.Tensor,
+                   b_gates: torch.Tensor, bounds, dh: torch.Tensor, *,
+                   block_b: int = 8, chunk: int = 128):
+    """Reverse-time exact VJP from the forward's chunk-boundary states:
+    -> (dzx, dR, db) in the primal shapes and dtypes."""
+    if not zx.is_cuda:
+        return ref.slstm_scan_bwd_ref(zx, r_gates, b_gates, bounds, dh,
+                                      block_b=block_b, chunk=chunk)
+    out = ss.slstm_scan_bwd(zx, r_gates, b_gates, bounds, dh,
+                            block_b=block_b, chunk=chunk)
+    slstm_scan_bwd.launches += 1
+    return out
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """Forward K7 with residuals, backward K8 from them (`jax.custom_vjp`
+    in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, zx, r_gates, b_gates, block_b, chunk):
+        h, bounds = slstm_scan_fwd_res(zx, r_gates, b_gates, block_b=block_b,
+                                       chunk=chunk)
+        ctx.save_for_backward(zx, r_gates, b_gates, *bounds)
+        ctx.opts = dict(block_b=block_b, chunk=chunk)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        zx, r_gates, b_gates, *bounds = ctx.saved_tensors
+        dzx, dr, db = slstm_scan_bwd(zx, r_gates, b_gates, tuple(bounds),
+                                     dh.contiguous(), **ctx.opts)
+        return dzx, dr, db, None, None
+
+
+def slstm_scan(zx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
+               *, block_b: int = 8, chunk: int = 128) -> torch.Tensor:
+    """Stabilised sLSTM recurrence: zx (B, T, H, 4hd) gate pre-activations
+    laid out [i|f|z|o] per head, r_gates (H, hd, 4hd), b_gates (H, 4hd) ->
+    h (B, T, H, hd) in zx's dtype; differentiable in all three."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (zx, r_gates, b_gates)):
+        return _SLSTMScan.apply(zx, r_gates, b_gates, block_b, chunk)
+    if not zx.is_cuda:
+        return ref.slstm_scan_ref(zx, r_gates, b_gates)
+    out = ss.slstm_scan(zx, r_gates, b_gates, block_b=block_b, chunk=chunk)
+    slstm_scan.launches += 1
+    return out
+
+
 # ------------------------------------------------------------------ hier mix
 def _mix(wrapper, x: torch.Tensor, g: torch.Tensor,
          op: torch.Tensor | GroupedOperator, theta: torch.Tensor, eta: float,
@@ -199,8 +280,9 @@ def hier_mix_packed_chunked(stacked_params, stacked_grads, op,
     return packing.unpack(out, spec)
 
 
-_COUNTED = (flash_attention, flash_attention_bwd, flash_decode, hier_mix,
-            hier_mix_pytree, hier_mix_packed, hier_mix_packed_chunked)
+_COUNTED = (flash_attention, flash_attention_bwd, flash_decode, slstm_scan,
+            slstm_scan_bwd, hier_mix, hier_mix_pytree, hier_mix_packed,
+            hier_mix_packed_chunked)
 _GROUPED = (hier_mix, hier_mix_pytree, hier_mix_packed,
             hier_mix_packed_chunked)
 

@@ -9,7 +9,12 @@ live key gives ``o = 0`` and ``lse = -1e30``; a decode lane with
 ``lengths == 0`` gives exact zeros.  Fused update + mix: the contract of
 ``csrc/hier_mix.cu`` (float32, ``u = x - (eta*theta) g`` with two
 roundings, every sum from 0 in index order, one rounding to the output
-dtype), so kernel and plain version agree bit for bit.
+dtype), so kernel and plain version agree bit for bit.  sLSTM scan: the
+stabilised recurrence in float32 (float64 for float64 inputs) with ``logsigmoid(x) = min(x, 0) -
+log1p(exp(-|x|))``, the state entering each chunk as the forward's
+residual, and the backward's exact VJP (ties of the stabiliser's max go to
+the forget branch, gradient through ``max(n, EPS)`` only where ``n >=
+EPS``), as ``csrc/slstm_scan.cu`` computes them.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -185,3 +191,150 @@ def hier_mix_grouped_ref(x: torch.Tensor, g: torch.Tensor,
         z = _contract(hub.to(u.device, torch.float32), z)
     return _contract(broadcast.to(u.device, torch.float32).t(),
                      z).to(x.dtype)
+
+
+# ---------------------------------------------------------------- sLSTM scan
+SLSTM_EPS = 1e-6
+
+
+def _acc_dtype(zx: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(zx.dtype, torch.float32)
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
+def _slstm_step(z: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                m: torch.Tensor, hd: int):
+    """One stabilised step from the pre-activation z (..., 4hd) laid out
+    [i|f|z|o].  -> (h, c, n, m)."""
+    zi, zf, zz, zo = z.split(hd, dim=-1)
+    logf = _logsigmoid(zf)
+    m_new = torch.maximum(logf + m, zi)
+    i_t = torch.exp(zi - m_new)
+    f_t = torch.exp(logf + m - m_new)
+    c_new = f_t * c + i_t * torch.tanh(zz)
+    n_new = f_t * n + i_t
+    h_new = torch.sigmoid(zo) * c_new / torch.clamp(n_new, min=SLSTM_EPS)
+    return h_new, c_new, n_new, m_new
+
+
+def _slstm_run(zx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
+               chunk: int = 0):
+    """The recurrence from h = c = m = 0, n = 1.  -> (h (B, T, H, hd)
+    float32 or float64, [(h, c, n, m) entering step s for s = 0, chunk, 2 chunk, ...]
+    when ``chunk`` > 0)."""
+    b, t, h, hd4 = zx.shape
+    hd = hd4 // 4
+    acc = _acc_dtype(zx)
+    z32, r32, bias = zx.to(acc), r_gates.to(acc), b_gates.to(acc)
+    zero = z32.new_zeros((b, h, hd))
+    state = (zero, zero, torch.ones_like(zero), zero)
+    hs, bounds = [], []
+    for s in range(t):
+        if chunk and s % chunk == 0:
+            bounds.append(state)
+        z = z32[:, s] + torch.einsum("bhk,hkg->bhg", state[0], r32) + bias
+        state = _slstm_step(z, *state[1:], hd)
+        hs.append(state[0])
+    return torch.stack(hs, 1), bounds
+
+
+def slstm_scan_ref(zx: torch.Tensor, r_gates: torch.Tensor,
+                   b_gates: torch.Tensor) -> torch.Tensor:
+    """Per-head sLSTM recurrence (K7's plain version).  zx: (B, T, H, 4hd)
+    gate pre-activations laid out [i|f|z|o] per head; r_gates (H, hd, 4hd);
+    b_gates (H, 4hd) -> h (B, T, H, hd) in zx's dtype.  Differentiable."""
+    return _slstm_run(zx, r_gates, b_gates)[0].to(zx.dtype)
+
+
+def slstm_geometry(bsz: int, t: int, block_b: int, chunk: int
+                   ) -> tuple[int, int, int, int]:
+    """The TPU kernel's padding: -> (block_b, chunk, Bp, T/chunk) with
+    block_b and chunk clamped to B and T, Bp = B rounded up to block_b and
+    T/chunk rounded up."""
+    block_b, chunk = min(block_b, bsz), min(chunk, t)
+    return block_b, chunk, bsz + (-bsz % block_b), -(-t // chunk)
+
+
+def slstm_scan_fwd_res_ref(zx: torch.Tensor, r_gates: torch.Tensor,
+                           b_gates: torch.Tensor, *, block_b: int = 8,
+                           chunk: int = 128):
+    """Forward with the backward's residuals: -> (h, (h, c, n, m) entering
+    each chunk), each bound (Bp, T/chunk, H, hd) float32 (float64 for
+    float64 inputs) in padded-batch layout; padded rows run the recurrence on zero input, as the kernel's
+    do."""
+    bsz, t = zx.shape[:2]
+    block_b, chunk, bp, _ = slstm_geometry(bsz, t, block_b, chunk)
+    zp = F.pad(zx.to(_acc_dtype(zx)), (0, 0, 0, 0, 0, 0, 0, bp - bsz))
+    hs, bounds = _slstm_run(zp, r_gates, b_gates, chunk)
+    return hs[:bsz].to(zx.dtype), tuple(
+        torch.stack([s[i] for s in bounds], 1) for i in range(4))
+
+
+def slstm_scan_bwd_ref(zx: torch.Tensor, r_gates: torch.Tensor,
+                       b_gates: torch.Tensor, bounds, dh: torch.Tensor, *,
+                       block_b: int = 8, chunk: int = 128):
+    """Reverse-time exact VJP (K8's plain version), step by step as the
+    kernel: chunks last to first, each re-run forward from its entering
+    state, then walked backwards.  Padded rows carry zero adjoints and are
+    left out.  dR = sum over (b, t) of h_prev^T dz and db = sum of dz are
+    taken after the walk, as the kernel's reduction does.
+    -> (dzx in zx's dtype, dR in r_gates' dtype, db in b_gates')."""
+    bsz, t, h, hd4 = zx.shape
+    hd = hd4 // 4
+    block_b, chunk, bp, nt = slstm_geometry(bsz, t, block_b, chunk)
+    if tuple(bounds[0].shape) != (bp, nt, h, hd):
+        raise ValueError(f"chunk-boundary residuals {tuple(bounds[0].shape)} "
+                         f"do not match the padded layout {(bp, nt, h, hd)}: "
+                         "forward and backward must use the same "
+                         "block_b/chunk")
+    acc = _acc_dtype(zx)
+    z32, r32, bias, dhf = (x.to(acc) for x in (zx, r_gates, b_gates, dh))
+    adj = [z32.new_zeros((bsz, h, hd)) for _ in range(4)]   # dh, dc, dn, dm
+    dz_all = z32.new_zeros((bsz, t, h, hd4))
+    hprev = z32.new_zeros((bsz, t, h, hd))
+    for tc in reversed(range(nt)):
+        lo, hi = tc * chunk, min((tc + 1) * chunk, t)
+        state = tuple(x[:bsz, tc].to(acc) for x in bounds)
+        zs, entering = [], []
+        for s in range(lo, hi):                    # pass 1: recompute
+            entering.append(state)
+            z = z32[:, s] + torch.einsum("bhk,hkg->bhg", state[0], r32) + bias
+            zs.append(z)
+            state = _slstm_step(z, *state[1:], hd)
+        for s in reversed(range(lo, hi)):          # pass 2: adjoints
+            z = zs[s - lo]
+            h_prev, c_prev, n_prev, m_prev = entering[s - lo]
+            zi, zf, zz, zo = z.split(hd, dim=-1)
+            a = _logsigmoid(zf) + m_prev
+            m = torch.maximum(a, zi)
+            i_t, f_t = torch.exp(zi - m), torch.exp(a - m)
+            tz = torch.tanh(zz)
+            ct = f_t * c_prev + i_t * tz
+            n_t = f_t * n_prev + i_t
+            nd = torch.clamp(n_t, min=SLSTM_EPS)
+            sig_o = torch.sigmoid(zo)
+            hdn = ct / nd
+            dh_t = adj[0] + dhf[:, s]
+            dzo = dh_t * hdn * sig_o * (1.0 - sig_o)
+            dct = dh_t * sig_o / nd + adj[1]
+            dnt = adj[2] - torch.where(n_t >= SLSTM_EPS,
+                                       dh_t * sig_o * hdn / nd, 0.0)
+            df = dct * c_prev + dnt * n_prev
+            di = dct * tz + dnt
+            dzz = dct * i_t * (1.0 - tz * tz)
+            dm = adj[3] - di * i_t - df * f_t
+            sel = a >= zi                          # ties: the forget branch
+            da = df * f_t + torch.where(sel, dm, 0.0)
+            dzi = di * i_t + torch.where(sel, 0.0, dm)
+            dzf = da * torch.sigmoid(-zf)
+            dz = torch.cat([dzi, dzf, dzz, dzo], dim=-1)
+            dz_all[:, s] = dz
+            hprev[:, s] = h_prev
+            adj = [torch.einsum("bhg,hkg->bhk", dz, r32), dct * f_t,
+                   dnt * f_t, da]
+    dr = torch.einsum("bthk,bthg->hkg", hprev, dz_all)
+    db = dz_all.sum((0, 1))
+    return dz_all.to(zx.dtype), dr.to(r_gates.dtype), db.to(b_gates.dtype)

@@ -3,9 +3,10 @@
 
 A readiness policy from `core.timeline` (``--policy barrier|deadline|
 gossip``) compiles a `TimelinePlan` for the slot budget, and
-`launch.harness` executes it over the attention transformer: per-worker
-grads through the hand-written kernels (``--impl flash``: flash-attention
-forward and backward) or plain PyTorch (``--impl plain``), the gated inner
+`launch.harness` executes it over the model (attention transformers and
+xLSTM): per-worker grads through the hand-written kernels (``--impl
+flash``: flash-attention forward and backward, the sLSTM scan forward and
+backward) or plain PyTorch (``--impl plain``), the gated inner
 optimizer, and the registered mixing strategy at each event.  Per-worker
 rates are hand-fed (``--rates``) or measured (``--rate-model measured``).
 Checkpoints carry the full protocol state; ``--resume`` continues a killed
@@ -17,6 +18,8 @@ run bit for bit.
       --impl flash                       # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --smoke --device cpu --steps 8 --tau 2 --q 2 --seq-len 32 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --impl flash --steps 8 --tau 2 --q 2 --seq-len 512 --batch 4
 
 ``--mesh`` and ``--overlap chunked`` are not ported yet (ROADMAP.md
 Queue 1).

@@ -67,7 +67,8 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig, *,
                   impl: str = "flash") -> tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens": (B, S) int} -> (logits (B, S, vocab), aux loss).
     Differentiable with either impl; ``impl="flash"`` trains attention
-    through the flash-attention forward and backward kernels."""
+    through the flash-attention forward and backward kernels and the sLSTM
+    recurrence through the sLSTM scan forward and backward kernels."""
     _require_tokens(cfg, "forward_train")
     x = embed_tokens(params["embed"], batch["tokens"], cfg)
     b, s, _ = x.shape

@@ -1,13 +1,15 @@
 """Block assembly: pattern-driven super-blocks run over depth (counterpart
-of `repro/models/transformer.py`, attention and dense-MLP parts).
+of `repro/models/transformer.py`: attention, mLSTM and sLSTM mixers and
+dense MLPs).
 
 A *super-block* is one repetition of ``cfg.pattern``.  Where the JAX version
 stacks all ``cfg.num_super_blocks`` repetitions on a leading axis and runs
 one `jax.lax.scan`, the port keeps a list of per-super-block parameter
 dicts (``blocks[i]["pos{j}"]``) and a Python loop over them.
 
-Only attention mixers and dense MLPs are ported: mamba, mLSTM and sLSTM
-positions and MoE positions raise `NotImplementedError`.
+Mamba positions and MoE positions are not ported and raise
+`NotImplementedError`.  Serving (prefill and paged decode) takes
+attention-only patterns, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -15,11 +17,18 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import dtype_of, init_mlp, init_norm, mlp_apply, norm_apply
 from repro_torch.serve import kv_cache as kvc
 
-_NOT_PORTED = ("ROADMAP.md Queue 1, 'Other architectures': mamba, xLSTM "
-               "(mLSTM/sLSTM with kernels K7/K8) and MoE are not ported yet")
+_NOT_PORTED = ("ROADMAP.md Queue 1, 'Other architectures': mamba and MoE "
+               "are not ported yet")
+
+_MIXER_INIT = {
+    "attn": attn_mod.init_attention,
+    "mlstm": xlstm_mod.init_mlstm,
+    "slstm": xlstm_mod.init_slstm,
+}
 
 
 def _position_uses_moe(cfg: ArchConfig, pos: int) -> bool:
@@ -34,10 +43,20 @@ def _has_ffn(cfg: ArchConfig, kind: str, pos: int) -> bool:
 
 def _require_ported(cfg: ArchConfig) -> None:
     for pos, kind in enumerate(cfg.pattern):
-        if kind != "attn" or _position_uses_moe(cfg, pos):
+        if kind not in _MIXER_INIT or _position_uses_moe(cfg, pos):
             raise NotImplementedError(
                 f"{cfg.name}: block {kind!r} at pattern position {pos}"
-                f"{' with MoE' if kind == 'attn' else ''}: {_NOT_PORTED}")
+                f"{' with MoE' if kind in _MIXER_INIT else ''}: "
+                f"{_NOT_PORTED}")
+
+
+def _require_attn_only(cfg: ArchConfig, what: str) -> None:
+    _require_ported(cfg)
+    if any(kind != "attn" for kind in cfg.pattern):
+        raise NotImplementedError(
+            f"{what} supports attention-only patterns; {cfg.name} has "
+            f"pattern {cfg.pattern} (recurrent blocks would need their "
+            "final state threaded out of the batched forward)")
 
 
 # ----------------------------------------------------------------- init
@@ -47,7 +66,7 @@ def init_super_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     blocks = {}
     for pos, kind in enumerate(cfg.pattern):
         b = {"norm1": init_norm(cfg, gen.device),
-             "mixer": attn_mod.init_attention(gen, cfg)}
+             "mixer": _MIXER_INIT[kind](gen, cfg)}
         if _has_ffn(cfg, kind, pos):
             b["norm2"] = init_norm(cfg, gen.device)
             b["ffn"] = init_mlp(gen, cfg)
@@ -68,6 +87,15 @@ def _ffn(b: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
 
 
 # ----------------------------------------------------------------- train fwd
+def _mixer_train(params: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
+                 positions: torch.Tensor, impl: str) -> torch.Tensor:
+    if kind == "attn":
+        return attn_mod.attention_train(params, h, cfg, positions, impl)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_train(params, h, cfg)
+    return xlstm_mod.slstm_train(params, h, cfg, impl=impl)
+
+
 def stack_train(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor, *, impl: str = "flash"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -77,8 +105,7 @@ def stack_train(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
         for pos, kind in enumerate(cfg.pattern):
             b = params[f"pos{pos}"]
             h = norm_apply(b["norm1"], x, cfg)
-            x = x + attn_mod.attention_train(b["mixer"], h, cfg, positions,
-                                             impl)
+            x = x + _mixer_train(b["mixer"], h, cfg, kind, positions, impl)
             x = _ffn(b, x, cfg, kind, pos)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -90,7 +117,7 @@ def stack_prefill(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
     """One batched forward over the prompt, returning the final hidden
     states and every layer's projected k/v: one {"pos{i}": (k, v)} per
     super-block, k/v (B, S, Hkv, hd).  The caller owns the cache layout."""
-    _require_ported(cfg)
+    _require_attn_only(cfg, "stack_prefill")
     kvs = []
     for params in blocks:
         layer = {}
@@ -111,7 +138,7 @@ def init_stacked_paged_state(cfg: ArchConfig, num_blocks: int,
                              ) -> list[dict]:
     """Per-layer paged block pools: one {"pos{i}": {"k_pool", "v_pool"}} per
     super-block, pools (num_blocks, block_size, Hkv, hd) zero-filled."""
-    _require_ported(cfg)
+    _require_attn_only(cfg, "init_stacked_paged_state")
     pc = kvc.PagedCacheConfig(block_size=block_size, num_blocks=num_blocks,
                               max_len=block_size)  # geometry only
     return [{f"pos{pos}": kvc.init_layer_pools(
@@ -127,7 +154,7 @@ def stack_paged_decode(blocks: list[dict], states: list[dict],
                        impl: str = "flash") -> tuple[torch.Tensor, list[dict]]:
     """One-token decode through every layer; the pools are written in
     place and returned."""
-    _require_ported(cfg)
+    _require_attn_only(cfg, "stack_paged_decode")
     new_states = []
     for params, state in zip(blocks, states):
         layer = {}

@@ -12,7 +12,9 @@ One production MLL-SGD slot is:
      composed dense (W, W) operator for partial-participation policies.
 
 With ``impl="flash"`` attention trains through the hand-written kernels
-(forward K3, backward K4; `repro_torch.kernels.ops.flash_attention`).
+(forward K3, backward K4; `repro_torch.kernels.ops.flash_attention`), and
+so does the sLSTM recurrence (forward K7, backward K8;
+`repro_torch.kernels.ops.slstm_scan`).
 ``microbatch > 1`` (gradient accumulation) is not ported yet (ROADMAP.md
 Queue 1).
 """

@@ -341,3 +341,86 @@ def test_cuda_timeline_runs_the_kernels(cuda_device):
                                    rtol=0)
         assert torch.equal(gpu.final_avg_params[k],
                            chunked.final_avg_params[k])
+
+
+# -------------------------------------------------------------- sLSTM scan
+def _slstm_inputs(device, b, t, h, hd, dtype, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    zx = torch.randn(b, t, h, 4 * hd, generator=g, device=device).to(dtype)
+    r = torch.randn(h, hd, 4 * hd, generator=g, device=device) / hd ** 0.5
+    bias = 0.1 * torch.randn(h, 4 * hd, generator=g, device=device)
+    dh = torch.randn(b, t, h, hd, generator=g, device=device).to(dtype)
+    return zx, r, bias, dh
+
+
+def _scaled_close(got, want, tol):
+    """Every element within tol * max|want| + tol * |want|."""
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,hd,bb,chunk,dtype", [
+    (4, 512, 4, 384, 8, 128, torch.float32),   # xlstm-125m's training shape
+    (3, 200, 2, 32, 2, 64, torch.float32),     # ragged B and T
+    (2, 21, 1, 16, 8, 32, torch.float32),      # T < chunk, H 1
+    (5, 100, 4, 128, 8, 128, torch.bfloat16),  # 8 compiled rows, bf16 zx
+])
+def test_cuda_slstm_scan_matches_plain(cuda_device, b, t, h, hd, bb, chunk,
+                                       dtype):
+    """K7 (h and the four chunk-entering states) and K8 (dzx, dR, db from
+    K7's states) against their plain versions, each output to its own
+    scale: 1e-4 in float32 (summation order, math-library ulps through up
+    to 512 steps), 1e-2 for a bf16 output (one rounding); K8 twice gives
+    the same bits."""
+    zx, r, bias, dh = _slstm_inputs(cuda_device, b, t, h, hd, dtype)
+    kw = dict(block_b=bb, chunk=chunk)
+    fwd, bwd = ops.slstm_scan.launches, ops.slstm_scan_bwd.launches
+    h_out, bounds = ops.slstm_scan_fwd_res(zx, r, bias, **kw)
+    got = ops.slstm_scan_bwd(zx, r, bias, bounds, dh, **kw)
+    again = ops.slstm_scan_bwd(zx, r, bias, bounds, dh, **kw)
+    torch.cuda.synchronize()
+    assert ops.slstm_scan.launches == fwd + 1
+    assert ops.slstm_scan_bwd.launches == bwd + 2
+    low = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    want_h, want_bounds = ref.slstm_scan_fwd_res_ref(zx, r, bias, **kw)
+    _scaled_close(h_out, want_h, low)
+    for g, w in zip(bounds, want_bounds):
+        torch.testing.assert_close(g, w, atol=1e-4 * max(
+            1.0, w.abs().max().item()), rtol=1e-4)
+    want = ref.slstm_scan_bwd_ref(zx, r, bias, bounds, dh, **kw)
+    for a, c, w, tol in zip(got, again, want, (low, 1e-4, 1e-4)):
+        assert torch.equal(a, c)
+        assert a.dtype == w.dtype and a.shape == w.shape
+        _scaled_close(a, w, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_train_runs_k7_then_k8(cuda_device):
+    """`slstm_train(impl="flash")` under autograd at the smoke config in
+    float32: one K7 and one K8 launch, output and gradients equal to the
+    cell loop's within float32 rounding."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import xlstm as xlstm_mod
+
+    cfg = dataclasses.replace(get_smoke_config("xlstm-125m"),
+                              param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator(cuda_device).manual_seed(1)
+    p = xlstm_mod.init_slstm(g, cfg)
+    x = torch.randn(2, 64, cfg.d_model, generator=g, device=cuda_device)
+    out = {}
+    for impl in ("flash", "plain"):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        fwd, bwd = ops.slstm_scan.launches, ops.slstm_scan_bwd.launches
+        y = xlstm_mod.slstm_train(leaves, x, cfg, impl=impl)
+        grads = torch.autograd.grad(y.square().sum(), list(leaves.values()))
+        torch.cuda.synchronize()
+        n = int(impl == "flash")
+        assert ops.slstm_scan.launches == fwd + n
+        assert ops.slstm_scan_bwd.launches == bwd + n
+        out[impl] = [y.detach(), *grads]
+    for a, w in zip(out["flash"], out["plain"]):
+        _scaled_close(a, w, 1e-4)

@@ -303,6 +303,22 @@ def test_cli_main_runs(tmp_path, capsys):
         ttrain.main(["--mixing", "int8_ef", "--device", "cpu"])
 
 
+def test_cli_main_trains_xlstm(tmp_path, capsys):
+    """The CLI trains xlstm-smoke (mLSTM + sLSTM, bf16 with float32 gate
+    leaves) through the sLSTM scan's autograd Function (plain versions on
+    the CPU), and resumes from its checkpoint."""
+    args = ["--arch", "xlstm-125m", "--smoke", "--device", "cpu", "--impl",
+            "flash", "--steps", "4", "--tau", "2", "--q", "2", "--topology",
+            "ring", "--mixing", "two_stage", "--rates", "1", "0.8", "1", "0.6",
+            "--seq-len", "8", "--batch", "2", "--eval-every", "2",
+            "--checkpoint-dir", str(tmp_path / "ck")]
+    ttrain.main(args + ["--stop-slot", "2"])
+    ttrain.main(args + ["--resume"])
+    out = capsys.readouterr().out
+    assert "arch=xlstm-smoke" in out and "resumed from slot 2" in out
+    assert "final u_k loss" in out
+
+
 def test_measure_worker_rates_shape_and_skew(monkeypatch):
     """Shape, max == 1 and skew scaling, on a fake clock that makes every
     measured step take exactly one second (no wall-clock ratios)."""
