@@ -9,16 +9,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 1. device  -- requires CUDA; prints the card, its power limit, torch and CUDA
    versions; turns TF32 off for every float32 product.
 2. build   -- nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a, one
-   process per source, into ``build/repro_torch/``.
+   process per source, into ``build/repro_torch/``; ptxas' registers and
+   spilled bytes per kernel.
 3. kernels -- each hand-written kernel against its plain PyTorch version on
-   the card, bf16 and float32, at the qwen3-1.7b (H 16 / Hkv 8 / hd 128) and
-   qwen2-0.5b (H 14 / Hkv 2 / hd 64) geometries, with window and softcap
-   cases; kernel, plain and library times beside the card's bound.
+   the card, bf16 (K3 and K4 on the tensor cores) and float32 (on the CUDA
+   cores), at the qwen3-1.7b (H 16 / Hkv 8 / hd 128) and qwen2-0.5b (H 14 /
+   Hkv 2 / hd 64) geometries, with window and softcap cases; kernel time
+   (mean, median, min-max), its device time from the profiler, plain time
+   and SDPA's under each backend that runs (the fastest is the library
+   yardstick) beside the card's bound.
 4. serve   -- `ServeEngine` on qwen3-1.7b at full width (28 layers, bf16,
    seeded random weights) serves 8 Poisson requests through 4 lanes with
    the kernels (``impl="flash"``); the launch counters show every prefill
-   went through the flash-attention kernel and every decode tick through
-   the paged flash-decode kernel, 28 launches each.
+   went through the flash-attention kernel, in bf16 on the tensor cores,
+   and every decode tick through the paged flash-decode kernel, 28
+   launches each.
 5. parity  -- two served requests teacher-forced through ``impl="flash"``
    and ``impl="plain"`` on the same block tables: logits at every generated
    position agree within the bf16 tolerance.
@@ -31,7 +36,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    2 on a ring hub graph, rates 1.0/0.8/1.0/0.6), two_stage mixing, the
    deadline policy, tau = q = 2, 8 slots of 4 x 128 tokens per worker,
    through K3 forward and K4 backward; the launch counters show 28 K4
-   launches per worker and slot.  One more slot runs under the profiler.
+   launches per worker and slot, all bf16 on the tensor cores.  One more
+   slot runs under the profiler (the hand-written kernels' device time).
 8. train-parity -- one worker's gradients on one batch, ``impl="flash"``
    against ``impl="plain"``, at full width: per-leaf relative error.
 9. uk-serve -- the trained u_k served in memory by `ServeEngine`.
@@ -74,17 +80,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 16. sim-paper -- the paper's logistic regression at W = 100 in 10
    sub-networks through `simulate` (K1b) and `run_timeline` with two_stage
    mixing (K2 at D = 10), kernel="pallas" against kernel="xla".
-17. report -- one ``{"kernels": [...]}`` JSON line, the nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.
+17. report -- K3 at the serve, training and sim shapes, K4 at the
+   training shape; one ``{"kernels": [...]}`` JSON line, the nvidia-smi
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or away from the repository, it exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,6 +103,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -112,6 +122,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_mix as hm  # noqa: E402
 from repro_torch.kernels import slstm_scan as ss  # noqa: E402
+from repro_torch.kernels.tolerance import BWD_TOL, LSE_TOL, TOL  # noqa: E402
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -127,11 +138,6 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel call
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# kernel vs plain on the same inputs: float32 differs by summation order
-# only; bf16 outputs may round to neighbouring bf16 values (2^-8 relative)
-TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-       torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
-LSE_TOL = dict(atol=1e-4, rtol=1e-4)     # lse is float32 on both sides
 # served logits, flash vs plain path, after 28 bf16 layers (phase 5): the
 # two paths round attention to bf16 at other places, a noise of ~1% of the
 # logits; a wrong kernel (head, position, mask) moves them by ~100%.  With
@@ -141,6 +147,11 @@ MAX_REL, MEAN_REL, MIN_ARGMAX_AGREEMENT = 0.25, 0.05, 0.5
 GEOMETRIES = {"qwen3-1.7b": (16, 8, 128), "qwen2-0.5b": (14, 2, 64)}
 MASKING = [(0, 0.0), (256, 0.0), (0, 30.0)]          # (window, softcap)
 DECODE_LENGTHS = [0, 1, 17, 255, 1000, 2048, 4096, 4097]
+# the yardstick of K3 / K4: SDPA under each backend it has
+SDPA_BACKENDS = (("flash", SDPBackend.FLASH_ATTENTION),
+                 ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                 ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                 ("math", SDPBackend.MATH))
 
 
 def log(phase: str, msg: str) -> None:
@@ -156,19 +167,28 @@ def nvidia_smi() -> str:
 
 # ------------------------------------------------------------------ timing
 class Timer:
-    """Mean device time of a call, each launch after a write of 128 MiB so
-    it starts with a cold 50 MB L2, as the real caller finds it."""
+    """Device time of a call, each launch after a write of 128 MiB so it
+    starts with a cold 50 MB L2, as the real caller finds it.  A spin of
+    the device (``torch.cuda._sleep``) between the flush and the start
+    event holds the stream while the host enqueues the call, so the time
+    is the device's alone: without it, a call whose host side (Python,
+    checks, allocations, several launches) outlasts the flush would add its
+    host time to the device's.  The host's cost is `host_ms`."""
+
+    SPIN_CYCLES = 10_000_000      # ~5 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self, device: torch.device):
         self.flush = torch.empty(32 * 2**20, dtype=torch.float32,
                                  device=device)
 
-    def ms(self, fn, reps: int = 10) -> float:
+    def stats(self, fn, reps: int = 10) -> dict:
+        """-> {"mean", "median", "min", "max"} ms over ``reps`` launches."""
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -176,7 +196,52 @@ class Timer:
             e.record()
             pairs.append((s, e))
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / reps
+        ms = [s.elapsed_time(e) for s, e in pairs]
+        return {"mean": sum(ms) / reps, "median": float(np.median(ms)),
+                "min": min(ms), "max": max(ms)}
+
+    def ms(self, fn, reps: int = 10) -> float:
+        return self.stats(fn, reps)["mean"]
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host time of one call: ``reps`` calls back to back on the host
+    clock, before the device is waited for (what the call costs the host
+    that enqueues it, which the timed ``ms`` includes where it exceeds the
+    device's queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def sdpa_backends(timer: Timer, fn) -> dict:
+    """``fn`` (one SDPA call, forward or backward) timed under each backend
+    that `sdpa_kernel` accepts for its inputs -> {backend: stats}."""
+    out = {}
+    for name, backend in SDPA_BACKENDS:
+        with sdpa_kernel(backend):
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError):   # refuses these inputs
+                continue
+            out[name] = timer.stats(fn)
+    return out
+
+
+def _library(backends: dict) -> dict:
+    """The fastest backend by mean as the yardstick."""
+    if not backends:
+        return {"library_ms": None, "library_backend": None,
+                "library_backends": {}}
+    best = min(backends, key=lambda k: backends[k]["mean"])
+    return {"library_ms": backends[best]["mean"], "library_backend": best,
+            "library_backends": backends}
 
 
 def _bound(bytes_: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -196,6 +261,48 @@ def _close(got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
     return err.max().item()
 
 
+TC_LAUNCHES: dict[str, dict] = {}   # path -> bf16 K3 / K4 launches
+
+
+def check_tensor_cores(path: str) -> None:
+    """Every K3 / K4 launch since the last reset was bf16, so ran on the
+    tensor-core kernels (the wrappers' ``tc_launches``): no main path may
+    reach the CUDA-core instantiations."""
+    got = {}
+    for fn in (ops.flash_attention, ops.flash_attention_bwd):
+        if fn.tc_launches != fn.launches:
+            raise AssertionError(
+                f"{path}: {fn.launches - fn.tc_launches} of {fn.launches} "
+                f"{fn.__name__} launches were not bf16 (tensor cores)")
+        got[fn.__name__] = fn.tc_launches
+    TC_LAUNCHES[path] = got
+
+
+def ptxas_report(log_text: str) -> dict:
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} from
+    ``ptxas -v`` output."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"\d+((?:flash|group)\w*?kernel)I(f?)((?:Li\d+E)+)E",
+                          mangled)     # kernel<[float, ]head_dim>
+            if m:
+                args = re.findall(r"Li(\d+)E", m.group(3))
+                args += ["f32"] if m.group(2) else []
+                name = f"{m.group(1)}<{', '.join(args)}>"
+            else:
+                name = mangled[:60]
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out.setdefault(name, {})["spill_bytes"] = nums[1] + nums[2]
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+    return out
+
+
 # ---------------------------------------------------------- K3 measurement
 def fwd_live_pairs(t: int, s: int, window: int) -> int:
     """(query, key) pairs that causal + window masking leaves live."""
@@ -205,20 +312,22 @@ def fwd_live_pairs(t: int, s: int, window: int) -> int:
     return int(np.maximum(0, hi - lo).sum())
 
 
-def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float) -> dict:
-    """K3 against its plain version on (q, k, v): error, times, bound."""
-    o, lse = ops.flash_attention_fwd_res(q, k, v, window=window,
-                                         softcap=softcap)
-    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, window=window,
-                                                   softcap=softcap)
+def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float,
+                causal: bool = True) -> dict:
+    """K3 against its plain version on (q, k, v): error, device time with
+    its spread, host time, bound, and SDPA under each backend that runs."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = ops.flash_attention_fwd_res(q, k, v, **kw)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
     err = max(_close(o, want_o, TOL[q.dtype]),
               _close(lse, want_lse, LSE_TOL))
     b, t, h, hd = q.shape
     es = q.element_size()
     bytes_ = es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-    flops = 4 * hd * h * b * fwd_live_pairs(t, k.shape[1], window)
-    bound_ms, bound_by = _bound(bytes_, flops, q.dtype)
-    library_ms = None
+    live = (fwd_live_pairs(t, k.shape[1], window) if causal
+            else t * k.shape[1])
+    bound_ms, bound_by = _bound(bytes_, 4 * hd * h * b * live, q.dtype)
+    backends = {}
     if softcap == 0.0:     # SDPA has no softcap; GQA expanded outside the call
         group = h // k.shape[2]
         qt = q.transpose(1, 2)
@@ -228,16 +337,18 @@ def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float) -> dict:
         if window > 0:
             qp = torch.arange(t, device=q.device)[:, None]
             kp = torch.arange(k.shape[1], device=q.device)[None, :]
-            mask = (kp <= qp) & (qp - kp < window)
-        library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None))
+            mask = (qp - kp < window) & ((kp <= qp) if causal else True)
+        backends = sdpa_backends(timer, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None))
+
+    def call():
+        return ops.flash_attention_fwd_res(q, k, v, **kw)
+    run = timer.stats(call)
     return {"max_abs_err": err, "tolerance": TOL[q.dtype],
-            "ms": timer.ms(lambda: ops.flash_attention_fwd_res(
-                q, k, v, window=window, softcap=softcap)),
+            "ms": run["mean"], "ms_spread": run, "host_ms": host_ms(call),
             "plain_ms": timer.ms(lambda: ref.flash_attention_fwd_ref(
-                q, k, v, window=window, softcap=softcap)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+                q, k, v, **kw)),
+            "bound_ms": bound_ms, "bound_by": bound_by, **_library(backends)}
 
 
 # ---------------------------------------------------------- K6 measurement
@@ -407,6 +518,7 @@ def phase_serve(cfg, device: torch.device, smi: str):
             "flash_decode": cfg.num_layers * n_decode}
     if launches != want or min(launches.values()) == 0:
         raise AssertionError(f"launches {launches}, expected {want}")
+    check_tensor_cores("serve")
     lat = np.array([r["latency_s"] for r in out["records"]])
     ttft = np.array([r["ttft_s"] for r in out["records"]])
     log("serve", f"{out['generated'] / out['wall_s']} tokens/s, TTFT p50 "
@@ -537,13 +649,6 @@ BWD_CASES = [(4, 128, 128, 16, 8, 128, True, 0, 0.0),
              (2, 300, 300, 14, 2, 64, True, 100, 0.0),
              (2, 200, 200, 8, 4, 128, True, 0, 30.0),
              (2, 190, 260, 4, 2, 64, False, 0, 0.0)]
-# dq/dk/dv, kernel vs plain, each output held to its own scale (a
-# loss-gradient `do` makes them ~1e-5, unit inputs ~10): every element
-# within atol_of_max * max|want| + rtol * |want|, and the relative norm
-# error ||got - want|| / ||want|| within rel_norm.  float32 differs by
-# summation order; bf16 by one rounding of each output (2^-9 relative).
-BWD_TOL = {torch.float32: dict(atol_of_max=1e-4, rtol=1e-4, rel_norm=1e-4),
-           torch.bfloat16: dict(atol_of_max=1e-2, rtol=1e-2, rel_norm=1e-2)}
 
 
 def _close_scaled(got: torch.Tensor, want: torch.Tensor, tol: dict
@@ -585,25 +690,40 @@ def measure_bwd(timer: Timer, q, k, v, o, lse, do, causal: bool, window: int,
     flops = 10 * hd * h * b * (fwd_live_pairs(t, k.shape[1], window)
                                if causal else t * k.shape[1])
     bound_ms, bound_by = _bound(bytes_, flops, q.dtype)
-    library_ms = None
+    backends = {}
     if softcap == 0.0 and window == 0:
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             enable_gqa=True)
         dot = do.transpose(1, 2)
-        library_ms = timer.ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True))
+        for name, backend in SDPA_BACKENDS:
+            with sdpa_kernel(backend):
+                try:    # the graph is recorded under this backend
+                    out = F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+                    torch.autograd.grad(out, (qt, kt, vt), dot,
+                                        retain_graph=True)
+                    torch.cuda.synchronize()
+                except (RuntimeError, ValueError):   # refuses these inputs
+                    continue
+                backends[name] = timer.stats(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True))
+
+    def call():
+        return ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+    def delta():
+        return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    run = timer.stats(call)
     return {"max_abs_err": max(e for e, _ in errs),
             "rel_err": max(r for _, r in errs),
             "max_abs_out": [w.abs().max().item() for w in want],
             "tolerance": BWD_TOL[q.dtype], "deterministic": True,
-            "ms": timer.ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse,
-                                                           do, **kw)),
+            "ms": run["mean"], "ms_spread": run, "host_ms": host_ms(call),
+            # the wrapper's delta = rowsum(do * o), a torch expression
+            "delta_ms": timer.ms(delta), "delta_host_ms": host_ms(delta),
             "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, o, lse, do, **kw)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, **_library(backends)}
 
 
 def phase_train_kernels(timer: Timer, device: torch.device) -> None:
@@ -714,6 +834,7 @@ def phase_train(cfg, device: torch.device, smi: str, *, phase: str = "train",
             "slstm_scan_bwd": n_slstm * w * grad_slots}
     if launches != want or sum(launches.values()) == 0:
         raise AssertionError(f"launches {launches}, expected {want}")
+    check_tensor_cores(phase)
     if not np.isfinite(hist["avg_loss"]).all() or not np.isfinite(
             hist["loss"]).all():
         raise AssertionError(f"non-finite loss history {hist}")
@@ -775,13 +896,16 @@ def phase_train_profile(cfg, out, mll, device: torch.device, smi: str, *,
     n_ops = sum(1 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA)
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
-    slstm_ms = {k: sum(us for name, us in device_us.items() if k in name) / 1e3
-                for k in ("slstm_fwd_kernel", "slstm_bwd_kernel",
-                          "slstm_dr_kernel")}
+    kernel_ms = {k: sum(us for name, us in device_us.items() if k in name) / 1e3
+                 for k in ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel",
+                           "group_sum_kernel",
+                           "slstm_fwd_kernel", "slstm_bwd_kernel",
+                           "slstm_dr_kernel")}
     log(phase, f"local slot (W=4 fwd+bwd+update, 4 x {seq_len} tokens per "
         f"worker): wall {wall_ms} ms (no profiler; {prof_ms} ms under it); "
         f"device busy {busy_ms} ms ({100 * busy_ms / wall_ms}% of the wall), "
-        f"{n_ops} device operations; sLSTM kernels {slstm_ms} ms; top: "
+        f"{n_ops} device operations; hand-written kernels {kernel_ms} ms; "
+        f"top: "
         + "; ".join(f"{name[:50]} {us / 1e3} ms" for name, us in top)
         + f" on {smi}")
     return state
@@ -1470,6 +1594,7 @@ def phase_sim(device: torch.device, smi: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = mix_launches()
+        check_tensor_cores(f"sim ({label})")
         plan = res.plan
         events = [s for s in range(plan.slots) if plan.op_ids[s] != 0
                   or s in (plan.op_mats or {})]
@@ -1714,10 +1839,20 @@ def main() -> int:
     secs = build.build_all()
     log("build", f"nvcc seconds per source {secs}; wall "
         f"{time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
+    ptxas = {}
     for stem in secs:
-        for line in (build.BUILD_DIR / f"{stem}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+        text = (build.BUILD_DIR / f"{stem}.log").read_text()
+        ptxas[stem] = ptxas_report(text)
+        log("build", f"{stem}: ptxas {json.dumps(ptxas[stem])}")
+        for line in text.splitlines():
+            if "wgmma" in line or "arning" in line:
                 log("build", f"{stem}: {line.strip()}")
+    # blocks of the bf16 tensor-core kernels resident on one SM at once
+    blocks_per_sm = {
+        stem: {f"hd {hd}": build.load(stem, f"{stem}_blocks_per_sm",
+                                      [ctypes.c_int])(hd) for hd in (64, 128)}
+        for stem in ("flash_fwd", "flash_bwd")}
+    log("build", f"blocks per SM: {json.dumps(blocks_per_sm)}")
 
     timer = Timer(device)
     phase_kernels(timer, device)
@@ -1728,6 +1863,7 @@ def main() -> int:
 
     q, k, v, kw = rec.fwd
     k3 = measure_fwd(timer, q, k, v, kw["window"], kw["softcap"])
+    rec_shape = q.shape
     log("report", f"K3 at the main path's largest prefill q {tuple(q.shape)}"
         f" k {tuple(k.shape)}: {json.dumps(k3)}")
     q, kp, vp, tables, lengths, kw = rec.busiest_decode()
@@ -1758,7 +1894,20 @@ def main() -> int:
                      kw["softcap"])
     log("report", f"K4 at the training path's shapes q {tuple(q.shape)} k "
         f"{tuple(k.shape)} {str(q.dtype)[6:]}: {json.dumps(k4)}")
-    del q, k, v, o, lse, do, bwd_rec
+    # K3 at the shapes that launch it most: training and simulation
+    k3_shapes = {"serve": dict(q=list(rec_shape), ms=k3["ms"])}
+    k3_shapes["train"] = dict(q=list(q.shape), **measure_fwd(
+        timer, q.detach(), k.detach(), v.detach(), kw["window"],
+        kw["softcap"], kw["causal"]))
+    gen = torch.Generator(device).manual_seed(2)
+    qs, ks, vs = (torch.randn(4, 128, hh, 64, generator=gen, device=device)
+                  .to(torch.bfloat16) for hh in (14, 2, 2))
+    k3_shapes["sim-qwen2"] = dict(q=list(qs.shape), **measure_fwd(
+        timer, qs, ks, vs, 0, 0.0))
+    for path in ("train", "sim-qwen2"):
+        log("report", f"K3 at the {path} path's shape q "
+            f"{tuple(k3_shapes[path]['q'])}: {json.dumps(k3_shapes[path])}")
+    del q, k, v, o, lse, do, bwd_rec, qs, ks, vs
     torch.cuda.empty_cache()
 
     xl_launches, k7, k8 = phase_xlstm(timer, device, smi)
@@ -1786,6 +1935,13 @@ def main() -> int:
              launches_by_path={"serve": launches["flash_attention"],
                                "train": train_launches["flash_attention"],
                                "sim-qwen2": sim_launches["K3"]},
+             tensor_core_launches_by_path={
+                 path: n["flash_attention"] for path, n in TC_LAUNCHES.items()
+                 if n["flash_attention"]},
+             shapes=k3_shapes,
+             ptxas={k: v for k, v in ptxas["flash_fwd"].items()
+                    if "tc_kernel" in k},
+             blocks_per_sm=blocks_per_sm["flash_fwd"],
              **k3),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/csrc/flash_decode.cu",
@@ -1799,7 +1955,15 @@ def main() -> int:
              + sim_launches["K4"],
              launches_by_path={
                  "train": train_launches["flash_attention_bwd"],
-                 "sim-qwen2": sim_launches["K4"]}, **k4),
+                 "sim-qwen2": sim_launches["K4"]},
+             tensor_core_launches_by_path={
+                 path: n["flash_attention_bwd"]
+                 for path, n in TC_LAUNCHES.items()
+                 if n["flash_attention_bwd"]},
+             ptxas={k: v for k, v in ptxas["flash_bwd"].items()
+                    if "tc_kernel" in k or "group_sum" in k},
+             blocks_per_sm=blocks_per_sm["flash_bwd"],
+             **k4),
         dict(name="slstm_scan", route="cuda",
              source="src/repro_torch/csrc/slstm_scan.cu",
              replaces="src/repro/kernels/slstm_scan.py:118",

@@ -9,6 +9,10 @@ Counterpart of `repro/kernels/flash_attention.py`:
   `_bwd_dq_kernel` / `_bwd_dkv_kernel` behind `flash_attention_bwd`, the
   TPU recomputation backward; ``delta = rowsum(do * o)`` is one torch
   expression here, as the TPU wrapper computes it outside Pallas);
+
+  for both, the dtype picks the kernel inside the C entry point: bf16 runs
+  on the tensor cores (wgmma, operands loaded by TMA, which needs each
+  tensor's address 16-byte aligned), float32 on the CUDA cores;
 * `flash_decode_paged` launches ``csrc/flash_decode.cu`` (replaces
   `_decode_kernel` / `flash_decode_paged` and its split combine).
 
@@ -34,7 +38,7 @@ MAX_GROUP = 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
-_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -59,6 +63,15 @@ def _check_float(what: str, q: torch.Tensor, *others: torch.Tensor) -> None:
            "q, k and v must share one dtype")
     _check(what, q.shape[-1] in HEAD_DIMS,
            f"head_dim {q.shape[-1]} not supported on CUDA (64 or 128)")
+
+
+def _check_tma(what: str, **tensors) -> None:
+    """The bf16 kernels load through TMA tensor maps, whose base address
+    must be 16-byte aligned (a fresh allocation always is)."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            _check(what, False, f"{name} must start on a 16-byte boundary "
+                   f"for the bf16 kernel (offset {t.storage_offset()})")
 
 
 def _raise_on_error(what: str, err: int) -> None:
@@ -87,6 +100,7 @@ def flash_attention_fwd_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s, hkv = k.shape[1], k.shape[2]
     _check(what, k.shape[0] == b and k.shape[3] == hd and hkv > 0
            and h % hkv == 0, "k/v must be (B, S, Hkv, hd) with H % Hkv == 0")
+    _check_tma(what, q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     fn = build.load("flash_fwd", "flash_fwd", _FWD_ARGS)
@@ -120,13 +134,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            and h % hkv == 0, "k/v must be (B, S, Hkv, hd) with H % Hkv == 0")
     _check(what, lse.dtype == torch.float32 and lse.shape == (b, h, t),
            f"lse must be float32 (B, H, T), got {lse.dtype} {tuple(lse.shape)}")
+    _check_tma(what, q=q, k=k, v=v, do=do)
     # the TPU wrapper's preprocess: delta_i = sum_d do_id * o_id in float32
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # bf16 with a GQA group: one block per q head writes float32 partials
+    # of dk / dv, summed over the group in head order by a second kernel
+    parts = (None, None)
+    if q.dtype == torch.bfloat16 and h > hkv:
+        part = torch.empty((2, b, s, h, hd), dtype=torch.float32,
+                           device=q.device)
+        parts = (part.data_ptr(), part.data_ptr() + 4 * b * s * h * hd)
     fn = build.load("flash_bwd", "flash_bwd", _BWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), b, t, s, h, hkv, hd, DTYPE_CODES[q.dtype],
+             dv.data_ptr(), *parts, b, t, s, h, hkv, hd, DTYPE_CODES[q.dtype],
              int(causal), int(window), float(softcap), 1.0 / math.sqrt(hd),
              _stream(q.device))
     _raise_on_error(what, err)

@@ -35,8 +35,10 @@ Each kernel's launches are counted in a plain integer attribute --
 ``flash_decode.launches``, ``slstm_scan.launches`` (both forward
 variants), ``slstm_scan_bwd.launches``, and ``launches`` on each of the four hier_mix
 wrappers (with ``grouped_launches`` counting the `GroupedOperator` ones
-among them) -- raised by one right after each successful launch and
-nowhere else, so a run can show that its path went through the kernels.
+among them; ``tc_launches`` on the two flash-attention wrappers counts
+the bf16 ones, which run on the tensor cores) -- raised by one right
+after each successful launch and nowhere else, so a run can show that its
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ def flash_attention_fwd_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = fa.flash_attention_fwd_res(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
     flash_attention.launches += 1
+    flash_attention.tc_launches += q.dtype == torch.bfloat16
     return out
 
 
@@ -86,6 +89,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                  window=window, softcap=softcap)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += q.dtype == torch.bfloat16
     return out
 
 
@@ -292,6 +296,8 @@ def reset_launches() -> None:
         fn.launches = 0
     for fn in _GROUPED:
         fn.grouped_launches = 0
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.tc_launches = 0
 
 
 reset_launches()

@@ -47,10 +47,22 @@ def cuda_device():
 
 
 GPU_FWD_CASES = [
-    # (h, hkv, hd, window, softcap, dtype)
-    (16, 8, 128, 0, 0.0, torch.bfloat16),
-    (14, 2, 64, 64, 0.0, torch.float32),
-    (4, 4, 64, 0, 30.0, torch.bfloat16),
+    # (t, s, h, hkv, hd, causal, window, softcap, dtype); bf16 runs on the
+    # tensor cores, float32 on the CUDA cores
+    (200, 200, 16, 8, 128, True, 0, 0.0, torch.bfloat16),
+    (200, 200, 14, 2, 64, True, 64, 0.0, torch.float32),
+    (200, 200, 4, 4, 64, True, 0, 30.0, torch.bfloat16),
+    (1, 1, 16, 8, 128, True, 0, 0.0, torch.bfloat16),        # T = 1
+    (1, 77, 14, 2, 64, False, 0, 0.0, torch.bfloat16),       # T = 1 < S
+    (63, 63, 8, 8, 64, True, 0, 0.0, torch.bfloat16),        # group 1
+    (65, 65, 14, 2, 64, True, 0, 30.0, torch.bfloat16),      # group 7
+    (65, 200, 16, 8, 128, False, 0, 0.0, torch.bfloat16),    # T < S
+    (200, 65, 4, 2, 128, True, 0, 0.0, torch.bfloat16),      # T > S
+    (300, 300, 14, 2, 64, True, 100, 0.0, torch.bfloat16),   # window
+    (300, 300, 32, 8, 128, True, 0, 0.0, torch.bfloat16),    # many blocks
+    (300, 300, 28, 4, 64, True, 100, 30.0, torch.bfloat16),  # group 7
+    (200, 20, 4, 2, 64, True, 30, 0.0, torch.bfloat16),      # dead rows
+    (200, 20, 4, 2, 64, True, 30, 0.0, torch.float32),       # dead rows
 ]
 
 
@@ -59,23 +71,40 @@ def _gpu_tol(dtype):
         dict(atol=1e-4, rtol=0)
 
 
+def _dead_rows(t, s, causal, window):
+    """(T,) bool: queries with no live key."""
+    qpos = np.arange(t)[:, None]
+    kpos = np.arange(s)[None, :]
+    live = np.ones((t, s), bool)
+    if causal:
+        live &= kpos <= qpos
+    if window > 0:
+        live &= qpos - kpos < window
+    return torch.from_numpy(~live.any(1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,hkv,hd,window,softcap,dtype", GPU_FWD_CASES)
-def test_cuda_flash_attention_matches_plain(cuda_device, h, hkv, hd, window,
-                                            softcap, dtype):
+@pytest.mark.parametrize("t,s,h,hkv,hd,causal,window,softcap,dtype",
+                         GPU_FWD_CASES)
+def test_cuda_flash_attention_matches_plain(cuda_device, t, s, h, hkv, hd,
+                                            causal, window, softcap, dtype):
+    """K3 against its plain version; a query with no live key gives o = 0
+    and lse = -1e30 exactly."""
     g = torch.Generator(cuda_device).manual_seed(0)
-    q = torch.randn(2, 200, h, hd, generator=g, device=cuda_device).to(dtype)
-    k = torch.randn(2, 200, hkv, hd, generator=g, device=cuda_device).to(dtype)
-    v = torch.randn(2, 200, hkv, hd, generator=g, device=cuda_device).to(dtype)
+    q = torch.randn(2, t, h, hd, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(2, s, hkv, hd, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(2, s, hkv, hd, generator=g, device=cuda_device).to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     before = ops.flash_attention.launches
-    o, lse = ops.flash_attention_fwd_res(q, k, v, window=window,
-                                         softcap=softcap)
+    o, lse = ops.flash_attention_fwd_res(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
-    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, window=window,
-                                                   softcap=softcap)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
     torch.testing.assert_close(o.float(), want_o.float(), **_gpu_tol(dtype))
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    dead = _dead_rows(t, s, causal, window).to(cuda_device)
+    assert (o[:, dead] == 0).all()
+    assert (lse[:, :, dead] == -1e30).all()
 
 
 @pytest.mark.cuda
@@ -105,6 +134,15 @@ GPU_BWD_CASES = [
     (200, 200, 14, 2, 64, True, 64, 0.0, torch.float32),    # group 7, window
     (130, 130, 4, 4, 64, True, 0, 30.0, torch.bfloat16),    # softcap, T % 64
     (77, 150, 4, 2, 128, False, 0, 0.0, torch.float32),     # non-causal, T != S
+    (128, 128, 14, 2, 64, True, 0, 0.0, torch.bfloat16),    # sim path
+    (1, 1, 16, 8, 128, True, 0, 0.0, torch.bfloat16),       # T = 1
+    (63, 63, 8, 8, 64, True, 0, 0.0, torch.bfloat16),       # group 1
+    (65, 65, 14, 2, 64, True, 0, 30.0, torch.bfloat16),     # group 7, softcap
+    (300, 300, 14, 2, 64, True, 100, 0.0, torch.bfloat16),  # window
+    (300, 300, 16, 16, 128, True, 0, 0.0, torch.bfloat16),  # group 1, hd 128
+    (77, 150, 4, 2, 128, False, 0, 0.0, torch.bfloat16),    # T < S
+    (150, 77, 8, 4, 64, True, 0, 0.0, torch.bfloat16),      # T > S
+    (200, 20, 4, 2, 64, True, 30, 0.0, torch.bfloat16),     # dead rows
 ]
 
 
@@ -140,6 +178,24 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda_device, t, s, h, hkv,
         assert a.dtype == w.dtype and a.shape == w.shape
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_bf16_same_bits(cuda_device):
+    """bf16 K4 at the training path's shape gives the same bits on every
+    run, with other launches in between (no atomics, fixed-order sums)."""
+    q, k, v, do = _bwd_inputs(cuda_device, 128, 128, 16, 8, 128,
+                              torch.bfloat16)
+    o, lse = ops.flash_attention_fwd_res(q, k, v)
+    first = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for t in (64, 300):
+        q2, k2, v2, do2 = _bwd_inputs(cuda_device, t, t, 14, 2, 64,
+                                      torch.bfloat16, seed=t)
+        ops.flash_attention_bwd(q2, k2, v2,
+                                *ops.flash_attention_fwd_res(q2, k2, v2), do2)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
