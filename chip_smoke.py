@@ -12,12 +12,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    process per source, into ``build/repro_torch/``; ptxas' registers and
    spilled bytes per kernel.
 3. kernels -- each hand-written kernel against its plain PyTorch version on
-   the card, bf16 (K3 and K4 on the tensor cores) and float32 (on the CUDA
-   cores), at the qwen3-1.7b (H 16 / Hkv 8 / hd 128) and qwen2-0.5b (H 14 /
-   Hkv 2 / hd 64) geometries, with window and softcap cases; kernel time
-   (mean, median, min-max), its device time from the profiler, plain time
-   and SDPA's under each backend that runs (the fastest is the library
-   yardstick) beside the card's bound.
+   the card, bf16 (K3 and K4 on the tensor cores, K6 on `mma.sync`) and
+   float32 (on the CUDA cores), at the qwen3-1.7b (H 16 / Hkv 8 / hd 128),
+   qwen2-0.5b (H 14 / Hkv 2 / hd 64), chatglm3-6b (H 32 / Hkv 2 / hd 128,
+   GQA group 16) and stablelm-3b (H 32 / Hkv 32 / hd 80) geometries, with
+   window and softcap cases; kernel time (mean, median, min-max), host
+   time, plain time and SDPA's under each backend that runs (the fastest is
+   the library yardstick) beside the card's bound; K6's device kernels per
+   call (one) and its bits on two runs.
 4. serve   -- `ServeEngine` on qwen3-1.7b at full width (28 layers, bf16,
    seeded random weights) serves 8 Poisson requests through 4 lanes with
    the kernels (``impl="flash"``); the launch counters show every prefill
@@ -27,10 +29,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 5. parity  -- two served requests teacher-forced through ``impl="flash"``
    and ``impl="plain"`` on the same block tables: logits at every generated
    position agree within the bf16 tolerance.
+5b. serve-group16 -- `ServeEngine` on chatglm3-6b at full width (28
+   layers, bf16, seeded random weights, GQA group 16) serves 4 requests
+   through 4 lanes with the kernels, 28 K6 launches a decode tick; one
+   request teacher-forced through ``impl="flash"`` and ``impl="plain"``
+   within phase 5's limits.
 6. train-kernels -- the flash-attention backward (K4) against its plain
    version in bf16 and float32, at the training path's geometry, head_dim
-   64 and 128, with GQA, a window and a softcap, each output held to its
-   own scale; two runs of K4 on the same inputs give the same bits.
+   64, 80 and 128, with GQA groups up to 16, a window and a softcap, each
+   output held to its own scale; two runs of K4 on the same inputs give the
+   same bits; its delta kernel timed alone.
 7. train   -- `launch.train.run_training` trains qwen3-1.7b at full width
    (28 layers, bf16, seeded random weights) as W = 4 workers (2 subnets x
    2 on a ring hub graph, rates 1.0/0.8/1.0/0.6), two_stage mixing, the
@@ -80,9 +88,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 16. sim-paper -- the paper's logistic regression at W = 100 in 10
    sub-networks through `simulate` (K1b) and `run_timeline` with two_stage
    mixing (K2 at D = 10), kernel="pallas" against kernel="xla".
-17. report -- K3 at the serve, training and sim shapes, K4 at the
-   training shape; one ``{"kernels": [...]}`` JSON line, the nvidia-smi
-   line, and last ``{"ok": true, "device": {...}}``.
+17. report -- K3 at the serve, training and sim shapes, K6 at the serve
+   path's busiest decode tick and at one 4,096-token lane (with the splits
+   chosen), K4 at the training shape; one ``{"kernels": [...]}`` JSON line,
+   the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or away from the repository, it exits non-zero and prints no
 result.
@@ -144,7 +153,8 @@ PEAK_BYTES = 3.35e12
 # 151936 random-weight logits the top two often lie closer than that noise,
 # so argmax agreement is reported with a floor that only catches garbage.
 MAX_REL, MEAN_REL, MIN_ARGMAX_AGREEMENT = 0.25, 0.05, 0.5
-GEOMETRIES = {"qwen3-1.7b": (16, 8, 128), "qwen2-0.5b": (14, 2, 64)}
+GEOMETRIES = {"qwen3-1.7b": (16, 8, 128), "qwen2-0.5b": (14, 2, 64),
+              "chatglm3-6b": (32, 2, 128), "stablelm-3b": (32, 32, 80)}
 MASKING = [(0, 0.0), (256, 0.0), (0, 30.0)]          # (window, softcap)
 DECODE_LENGTHS = [0, 1, 17, 255, 1000, 2048, 4096, 4097]
 # the yardstick of K3 / K4: SDPA under each backend it has
@@ -285,11 +295,11 @@ def ptxas_report(log_text: str) -> dict:
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d+((?:flash|group)\w*?kernel)I(f?)((?:Li\d+E)+)E",
-                          mangled)     # kernel<[float, ]head_dim>
+            m = re.search(r"\d+((?:flash|group)\w*?kernel)I(f|13__nv_bfloat16)?"
+                          r"((?:Li\d+E)+)E", mangled)  # kernel<[type, ]head_dim>
             if m:
                 args = re.findall(r"Li(\d+)E", m.group(3))
-                args += ["f32"] if m.group(2) else []
+                args += {"f": ["f32"], None: []}.get(m.group(2), ["bf16"])
                 name = f"{m.group(1)}<{', '.join(args)}>"
             else:
                 name = mangled[:60]
@@ -352,17 +362,51 @@ def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float,
 
 
 # ---------------------------------------------------------- K6 measurement
+def device_kernels(fn, calls: int = 3) -> tuple[float, list]:
+    """Device kernels a call of ``fn`` runs: torch.profiler over ``calls``
+    calls between two device spins (which keep the calls' kernels inside
+    the traced window; the spins are not counted) -> (kernels per call,
+    their names).  A trace that caught no kernel at all (the profiler
+    missed the window) is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
+        if names:
+            break
+    return len(names) / calls, sorted(set(names))
+
+
 def measure_decode(timer: Timer, q, k_pool, v_pool, tables, lengths,
                    window: int, softcap: float) -> dict:
-    """K6 against its plain version: error, times, bound."""
-    out = ops.flash_decode(q, k_pool, v_pool, tables, lengths,
-                           window=window, softcap=softcap)
+    """K6 against its plain version: error, exact zeros for dead lanes, the
+    same bits on two runs, one device kernel per call, the splits chosen,
+    times (device, host), bound and SDPA over the gathered dense view."""
+    def call():
+        return ops.flash_decode(q, k_pool, v_pool, tables, lengths,
+                                window=window, softcap=softcap)
+    out, again = call(), call()
     want = ref.flash_decode_ref(q, k_pool, v_pool, tables, lengths,
                                 window=window, softcap=softcap)
     err = _close(out, want, TOL[q.dtype])
+    if not torch.equal(out, again):
+        raise AssertionError("K6 gave other bits on a second run")
     dead = lengths == 0
     if dead.any() and (out[dead] != 0).any():
         raise AssertionError("a lane of length 0 is not exactly zero")
+    per_call, names = device_kernels(call)
+    if per_call != 1:
+        raise AssertionError(f"K6 ran {per_call} device kernels a call, not "
+                             f"one: {names}")
     b, h, hd = q.shape
     hkv = k_pool.shape[2]
     lens = lengths.long().cpu()
@@ -385,10 +429,11 @@ def measure_decode(timer: Timer, q, k_pool, v_pool, tables, lengths,
         mask = mask[:, None, None, :]
         library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask))
+    run = timer.stats(call)
     return {"max_abs_err": err, "tolerance": TOL[q.dtype],
-            "ms": timer.ms(lambda: ops.flash_decode(
-                q, k_pool, v_pool, tables, lengths, window=window,
-                softcap=softcap)),
+            "same_bits": True, "launches_per_call": per_call,
+            "splits": fa.decode_splits(q, k_pool, tables),
+            "ms": run["mean"], "ms_spread": run, "host_ms": host_ms(call),
             "plain_ms": timer.ms(lambda: ref.flash_decode_ref(
                 q, k_pool, v_pool, tables, lengths, window=window,
                 softcap=softcap)),
@@ -611,9 +656,9 @@ def teacher_forced_logits(params, cfg, prompts, generated, impl: str,
     return torch.stack(steps, dim=1)
 
 
-def phase_parity(cfg, params, reqs, out, device: torch.device) -> None:
-    pick = sorted(reqs, key=lambda r: len(r.prompt))
-    pick = [pick[0], pick[-1]]                # shortest and longest prompt
+def phase_parity(cfg, params, pick, out, device: torch.device, *,
+                 phase: str = "parity") -> None:
+    """The served requests ``pick`` teacher-forced through both paths."""
     prompts = [r.prompt for r in pick]
     generated = [out["outputs"][r.rid][len(r.prompt):] for r in pick]
     flash = teacher_forced_logits(params, cfg, prompts, generated, "flash",
@@ -625,7 +670,7 @@ def phase_parity(cfg, params, reqs, out, device: torch.device) -> None:
     agree_paths = (flash.argmax(-1) == plain.argmax(-1)).float().mean().item()
     agree_served = (flash.argmax(-1) == served).float().mean().item()
     scale_max, scale_mean = plain.abs().max().item(), plain.abs().mean().item()
-    log("parity", f"requests {[r.rid for r in pick]} "
+    log(phase, f"{cfg.name}: requests {[r.rid for r in pick]} "
         f"(prompts {[len(p) for p in prompts]}), {served.shape[1]} positions "
         f"each: flash vs plain logits max abs {diff.max().item()} (tolerance "
         f"{MAX_REL} x max |logit| {scale_max}), mean abs {diff.mean().item()} "
@@ -640,15 +685,66 @@ def phase_parity(cfg, params, reqs, out, device: torch.device) -> None:
         raise AssertionError("argmax agreement below the floor")
 
 
+def phase_serve_group16(device: torch.device, smi: str) -> dict:
+    """chatglm3-6b (32 query heads over 2 kv heads: a GQA group of 16) at
+    full width served through K3 and K6, then its longest request
+    teacher-forced through both paths."""
+    cfg = get_config("chatglm3-6b")
+    t0 = time.perf_counter()
+    params = model_mod.init_model(torch.Generator(device).manual_seed(4),
+                                  cfg, device=device)
+    torch.cuda.synchronize()
+    log("serve-group16", f"{cfg.name}: {model_mod.count_params(params) / 1e9} "
+        f"B params ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.param_dtype}) initialised in {time.perf_counter() - t0} s")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(64, 257)))
+               .astype(np.int32) for _ in range(4)]
+    max_new, bs = 16, 16
+    max_len = 256 + max_new
+    ecfg = EngineConfig(max_batch=4, block_size=bs, max_len=max_len,
+                        num_blocks=len(prompts) * (-(-max_len // bs)),
+                        impl="flash")
+    eng = ServeEngine(params, cfg, ecfg, device=device)
+    reqs = poisson_arrivals(prompts, max_new=max_new, rate=0.5, seed=0)
+    ops.reset_launches()
+    out = eng.run(reqs)
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "flash_decode": ops.flash_decode.launches}
+    trace = eng.trace()
+    n_prefill = sum(e["kind"] == "prefill" for e in trace["events"])
+    n_decode = sum(b > 0 for b in trace["busy_slots"]) - n_prefill
+    log("serve-group16", f"{len(out['outputs'])} requests, {out['generated']}"
+        f" tokens, {n_prefill} prefill batches, {n_decode} decode ticks in "
+        f"{out['wall_s']} s; launches {launches} on {smi}")
+    ok = len(out["outputs"]) == len(prompts) and all(
+        len(out["outputs"][r.rid]) == len(r.prompt) + max_new
+        and all(0 <= t < cfg.vocab_size for t in out["outputs"][r.rid])
+        for r in reqs)
+    want = {"flash_attention": cfg.num_layers * n_prefill,
+            "flash_decode": cfg.num_layers * n_decode}
+    if not ok or launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"serving {cfg.name}: outputs complete {ok}, "
+                             f"launches {launches}, expected {want}")
+    check_tensor_cores("serve-group16")
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    phase_parity(cfg, params, [longest], out, device, phase="serve-group16")
+    return launches
+
+
 # ------------------------------------------------------ K4 measurement
 # (b, t, s, h, hkv, hd, causal, window, softcap) for the K4 checks: the
-# training path's geometry, both head dims, GQA groups 2 and 7, window,
-# softcap, T % 64 != 0, T != S
+# training path's geometry, head dims 64, 80 (stablelm-3b, padded to 128)
+# and 128, GQA groups 2, 7 and 16 (chatglm3-6b), window, softcap,
+# T % 64 != 0, T != S
 BWD_CASES = [(4, 128, 128, 16, 8, 128, True, 0, 0.0),
              (2, 512, 512, 16, 8, 128, True, 0, 0.0),
              (2, 300, 300, 14, 2, 64, True, 100, 0.0),
              (2, 200, 200, 8, 4, 128, True, 0, 30.0),
-             (2, 190, 260, 4, 2, 64, False, 0, 0.0)]
+             (2, 190, 260, 4, 2, 64, False, 0, 0.0),
+             (2, 256, 256, 32, 2, 128, True, 0, 0.0),
+             (2, 200, 200, 32, 32, 80, True, 0, 0.0)]
 
 
 def _close_scaled(got: torch.Tensor, want: torch.Tensor, tol: dict
@@ -712,15 +808,18 @@ def measure_bwd(timer: Timer, q, k, v, o, lse, do, causal: bool, window: int,
         return ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
 
     def delta():
-        return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return fa.flash_attention_delta(o, do)
+    delta_err = _close(delta(), ref.flash_attention_delta_ref(o, do),
+                       dict(atol=1e-4, rtol=1e-5))
     run = timer.stats(call)
     return {"max_abs_err": max(e for e, _ in errs),
             "rel_err": max(r for _, r in errs),
             "max_abs_out": [w.abs().max().item() for w in want],
             "tolerance": BWD_TOL[q.dtype], "deterministic": True,
             "ms": run["mean"], "ms_spread": run, "host_ms": host_ms(call),
-            # the wrapper's delta = rowsum(do * o), a torch expression
+            # the delta kernel alone (the K4 call launches it first)
             "delta_ms": timer.ms(delta), "delta_host_ms": host_ms(delta),
+            "delta_max_abs_err": delta_err,
             "plain_ms": timer.ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, o, lse, do, **kw)),
             "bound_ms": bound_ms, "bound_by": bound_by, **_library(backends)}
@@ -1859,7 +1958,8 @@ def main() -> int:
     cfg = get_config("qwen3-1.7b")
     params, reqs, out, launches, rec = phase_serve(cfg, device, smi)
     phase_profile(cfg, params, device, smi)
-    phase_parity(cfg, params, reqs, out, device)
+    by_prompt = sorted(reqs, key=lambda r: len(r.prompt))
+    phase_parity(cfg, params, [by_prompt[0], by_prompt[-1]], out, device)
 
     q, k, v, kw = rec.fwd
     k3 = measure_fwd(timer, q, k, v, kw["window"], kw["softcap"])
@@ -1870,8 +1970,27 @@ def main() -> int:
     k6 = measure_decode(timer, q, kp, vp, tables, lengths, kw["window"],
                         kw["softcap"])
     log("report", f"K6 at the main path's busiest decode tick, lengths "
-        f"{lengths.tolist()} pools {tuple(kp.shape)}: {json.dumps(k6)}")
-    del params, reqs, out, rec, q, k, v, kp, vp, tables, lengths
+        f"{lengths.tolist()} pools {tuple(kp.shape)}, {k6['splits']} splits:"
+        f" {json.dumps(k6)}")
+    k6_shapes = {"serve-busiest-tick": dict(
+        lengths=lengths.tolist(), ms=k6["ms"], splits=k6["splits"])}
+    # one long lane, where the split count matters most: qwen3 geometry
+    h, hkv, hd = GEOMETRIES["qwen3-1.7b"]
+    gen = torch.Generator(device).manual_seed(5)
+    n_pages = 4096 // 16
+    lane = [torch.randn(*shape, generator=gen, device=device)
+            .to(torch.bfloat16) for shape in
+            ((1, h, hd), (n_pages, 16, hkv, hd), (n_pages, 16, hkv, hd))]
+    lane += [torch.randperm(n_pages, generator=gen, device=device).int()
+             [None], torch.tensor([4096], dtype=torch.int32, device=device)]
+    k6_shapes["one-lane-4096"] = dict(lengths=[4096], **measure_decode(
+        timer, *lane, 0, 0.0))
+    log("report", f"K6 at one 4,096-token qwen3 lane, "
+        f"{k6_shapes['one-lane-4096']['splits']} splits: "
+        f"{json.dumps(k6_shapes['one-lane-4096'])}")
+    del params, reqs, out, rec, q, k, v, kp, vp, tables, lengths, lane
+    torch.cuda.empty_cache()
+    group16_launches = phase_serve_group16(device, smi)
     torch.cuda.empty_cache()
 
     phase_train_kernels(timer, device)
@@ -1931,10 +2050,13 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_fwd.cu",
              replaces="src/repro/kernels/flash_attention.py:148",
              launches=launches["flash_attention"]
+             + group16_launches["flash_attention"]
              + train_launches["flash_attention"] + sim_launches["K3"],
-             launches_by_path={"serve": launches["flash_attention"],
-                               "train": train_launches["flash_attention"],
-                               "sim-qwen2": sim_launches["K3"]},
+             launches_by_path={
+                 "serve": launches["flash_attention"],
+                 "serve-group16": group16_launches["flash_attention"],
+                 "train": train_launches["flash_attention"],
+                 "sim-qwen2": sim_launches["K3"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention"] for path, n in TC_LAUNCHES.items()
                  if n["flash_attention"]},
@@ -1946,8 +2068,12 @@ def main() -> int:
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_attention.py:282",
-             launches=launches["flash_decode"],
-             launches_by_path={"serve": launches["flash_decode"]}, **k6),
+             launches=launches["flash_decode"]
+             + group16_launches["flash_decode"],
+             launches_by_path={
+                 "serve": launches["flash_decode"],
+                 "serve-group16": group16_launches["flash_decode"]},
+             shapes=k6_shapes, ptxas=ptxas["flash_decode"], **k6),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:473",
@@ -1961,7 +2087,8 @@ def main() -> int:
                  for path, n in TC_LAUNCHES.items()
                  if n["flash_attention_bwd"]},
              ptxas={k: v for k, v in ptxas["flash_bwd"].items()
-                    if "tc_kernel" in k or "group_sum" in k},
+                    if "tc_kernel" in k or "group_sum" in k
+                    or "delta" in k},
              blocks_per_sm=blocks_per_sm["flash_bwd"],
              **k4),
         dict(name="slstm_scan", route="cuda",

@@ -8,8 +8,10 @@
 // delta) times the softcap chain rule 1 - (s / softcap)^2; dq = scale *
 // sum_kv ds k, dk = scale * sum_q ds^T q, dv = sum_q p^T do, dk/dv summed
 // over the GQA group of q heads that read the kv head.  delta = rowsum(do *
-// o) (B, H, T) float32 comes from the wrapper, as the TPU wrapper computes
-// it outside Pallas.  Causal, sliding window and kv_len masks as in the
+// o) (B, H, T) float32 is the preprocess the TPU wrapper computes outside
+// Pallas; here `flash_bwd_delta_kernel` computes it on the same stream
+// right before the main kernel, into a float32 scratch the wrapper
+// allocates.  Causal, sliding window and kv_len masks as in the
 // forward; fully masked tiles are skipped by the loop bounds (TPU
 // `_tile_live`).  No float atomics: every sum runs in a fixed order, so dq,
 // dk and dv are the same bits on every run (the trainer's kill-and-resume
@@ -38,6 +40,11 @@
 //   with a GQA group it writes float32 partials (B, S, H, hd) that
 //   `group_sum_kernel` adds in head order and rounds once: deterministic,
 //   and the same float32 sum the CUDA-core kernel forms in its loop.
+//
+// delta (both dtypes): one warp per (b, t, h) row, 16-byte loads of o and
+// do, each lane's products summed in order and the lanes' sums by a fixed
+// butterfly, written in lse's (B, H, T) layout.  It replaces four torch
+// launches (two casts, a product and a sum) and their host time.
 //
 // float32: `flash_bwd_dq_kernel` / `flash_bwd_dkv_kernel`, the products on
 // the CUDA cores in float32 (the tensor cores would round float32 operands
@@ -817,20 +824,104 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
+constexpr int DELTA_WARPS = 8;  // rows per block of the delta kernel
+
+__device__ __forceinline__ float dot_piece(const float* a, const float* b) {
+  const float4 x = *reinterpret_cast<const float4*>(a);
+  const float4 y = *reinterpret_cast<const float4*>(b);
+  float s = x.x * y.x;
+  s = fmaf(x.y, y.y, s);
+  s = fmaf(x.z, y.z, s);
+  return fmaf(x.w, y.w, s);
+}
+
+__device__ __forceinline__ float dot_piece(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(x2[i]), yf = __bfloat1622float2(y2[i]);
+    s = fmaf(xf.x, yf.x, s);
+    s = fmaf(xf.y, yf.y, s);
+  }
+  return s;
+}
+
+// delta[b, h, t] = sum_d o[b, t, h, d] * dout[b, t, h, d] in float32: one
+// warp per row of o, lane j taking the row's 16-byte piece j (a row has
+// 8 to 32 of them), the lanes' sums added by a fixed butterfly.
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * DELTA_WARPS)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int64_t n_rows, int t_len, int n_heads) {
+  constexpr int VEC = 16 / sizeof(T), CH = HD / VEC;
+  static_assert(CH <= 32, "one 16-byte piece per lane");
+  const int64_t row = (int64_t)blockIdx.x * DELTA_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;  // the whole warp
+  const float s = warp_sum(lane < CH ? dot_piece(o + row * HD + lane * VEC,
+                                                  dout + row * HD + lane * VEC)
+                                     : 0.f);
+  if (lane == 0) {
+    const int64_t bt = row / n_heads;
+    const int h = (int)(row % n_heads);
+    delta[(bt / t_len * n_heads + h) * t_len + bt % t_len] = s;
+  }
+}
+
+template <typename T, int HD>
+int launch_delta(const void* o, const void* dout, float* delta, int batch, int t_len,
+                 int n_heads, cudaStream_t stream) {
+  const int64_t n_rows = (int64_t)batch * t_len * n_heads;
+  if (n_rows == 0) return (int)cudaSuccess;
+  flash_bwd_delta_kernel<T, HD>
+      <<<(unsigned)((n_rows + DELTA_WARPS - 1) / DELTA_WARPS), 32 * DELTA_WARPS, 0, stream>>>(
+          static_cast<const T*>(o), static_cast<const T*>(dout), delta, n_rows, t_len, n_heads);
+  return (int)cudaGetLastError();
+}
+
+int delta_dispatch(const void* o, const void* dout, float* delta, int batch, int t_len,
+                   int n_heads, int head_dim, int dtype, cudaStream_t st) {
+#define REPRO_DELTA(T, HD) \
+  return launch_delta<T, HD>(o, dout, delta, batch, t_len, n_heads, st)
+  if (dtype == repro::DTYPE_F32 && head_dim == 64) REPRO_DELTA(float, 64);
+  if (dtype == repro::DTYPE_F32 && head_dim == 128) REPRO_DELTA(float, 128);
+  if (dtype == repro::DTYPE_BF16 && head_dim == 64) REPRO_DELTA(__nv_bfloat16, 64);
+  if (dtype == repro::DTYPE_BF16 && head_dim == 128) REPRO_DELTA(__nv_bfloat16, 128);
+#undef REPRO_DELTA
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q, dout, dq: (B, T, H, hd); k, v, dk, dv: (B, S, Hkv, hd); lse, delta:
-// (B, H, T) float32; all contiguous.  dtype: 0 float32, 1 bfloat16;
-// head_dim 64 or 128.  dk_part, dv_part: float32 (B, S, H, hd) scratch for
-// bf16 with H > Hkv (null otherwise).  Returns a cudaError_t (0 on success).
-extern "C" int flash_bwd(const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse, const float* delta,
+// o, dout: (B, T, H, hd) contiguous, 16-byte aligned; delta: (B, H, T)
+// float32 out.  dtype: 0 float32, 1 bfloat16; head_dim 64 or 128.  Launches
+// the delta preprocess alone.  Returns a cudaError_t (0 on success).
+extern "C" int flash_bwd_delta(const void* o, const void* dout, float* delta, int batch,
+                               int t_len, int n_heads, int head_dim, int dtype, void* stream) {
+  return delta_dispatch(o, dout, delta, batch, t_len, n_heads, head_dim, dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// q, o, dout, dq: (B, T, H, hd); k, v, dk, dv: (B, S, Hkv, hd); lse (B, H,
+// T) float32; all contiguous.  delta: (B, H, T) float32 scratch, written
+// here by the delta kernel before the main kernel reads it.  dtype: 0
+// float32, 1 bfloat16; head_dim 64 or 128.  dk_part, dv_part: float32 (B,
+// S, H, hd) scratch for bf16 with H > Hkv (null otherwise).  Returns a
+// cudaError_t (0 on success).
+extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, float* delta,
                          void* dq, void* dk, void* dv, float* dk_part, float* dv_part,
                          int batch, int t_len, int s_len, int n_heads, int n_kv_heads,
                          int head_dim, int dtype, int causal, int window, float softcap,
                          float scale, void* stream) {
   if (batch == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = delta_dispatch(o, dout, delta, batch, t_len, n_heads, head_dim, dtype, st);
+  if (err != 0) return err;
 #define REPRO_BWD(HD)                                                                  \
   return launch<HD>(q, k, v, dout, lse, delta, dq, dk, dv, batch, t_len, s_len,        \
                     n_heads, n_kv_heads, causal, window, softcap, scale, st)

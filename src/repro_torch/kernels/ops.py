@@ -13,8 +13,10 @@ PyTorch version in `ref`, and only then.
   recomputed.
 * `flash_attention_fwd_res` (o and lse) and `flash_attention_bwd` are the
   two halves, for callers that need them apart.
-* `flash_decode` runs the paged flash-decode (``csrc/flash_decode.cu``);
-  decode never differentiates.
+* `flash_decode` runs the paged flash-decode (``csrc/flash_decode.cu``),
+  one launch per call at any GQA group; decode never differentiates.
+* The attention kernels take head_dim 64, 80 and 128 (K3 and K4 run 80
+  zero-padded to 128, as the TPU wrappers do).
 * `slstm_scan` is differentiable through the kernels, as the JAX
   package's `jax.custom_vjp` is: a `torch.autograd.Function` whose forward
   launches the sLSTM scan forward (``csrc/slstm_scan.cu``) with the
@@ -130,7 +132,10 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  num_splits: int = 0) -> torch.Tensor:
     """Single-query attention over a paged KV cache: q (B, H, hd) against a
     (num_blocks, block_size, Hkv, hd) pool through a (B, max_blocks) block
-    table; split-KV with an exact logsumexp combine.  -> (B, H, hd)."""
+    table; split-KV with an exact logsumexp combine.  -> (B, H, hd).
+    ``num_splits`` picks the kernel's split count (0: chosen for the card;
+    see `flash_attention.choose_num_splits`); the plain version has no
+    splits, and split counts differ only by rounding."""
     if not q.is_cuda:
         return ref.flash_decode_ref(q, k_pool, v_pool, block_tables, lengths,
                                     window=window, softcap=softcap)

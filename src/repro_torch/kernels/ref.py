@@ -42,15 +42,17 @@ def _masked_softmax_out(s: torch.Tensor, mask: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             *, causal: bool = True, window: int = 0,
-                            softcap: float = 0.0
+                            softcap: float = 0.0, scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: (B, T, H, hd); k/v: (B, S, Hkv, hd) with H % Hkv == 0.
     -> (o (B, T, H, hd) in q's dtype, lse (B, H, T) float32).  Query i and
-    key j sit at positions i and j (no offset), as in the kernel."""
+    key j sit at positions i and j (no offset), as in the kernel.  ``scale``
+    defaults to ``1/sqrt(hd)`` (given for inputs padded along hd)."""
     b, t, h, hd = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     group = h // hkv
-    qg = q.float().reshape(b, t, hkv, group, hd) * (1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    qg = q.float().reshape(b, t, hkv, group, hd) * scale
     s = torch.einsum("bthgk,bshk->bhgts", qg, k.float())
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
@@ -74,21 +76,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    softcap=softcap)[0]
 
 
+def flash_attention_delta_ref(o: torch.Tensor, do: torch.Tensor
+                              ) -> torch.Tensor:
+    """The backward's preprocess: o, do (B, T, H, hd) -> delta =
+    rowsum(do * o) (B, H, T) in float32 (the TPU wrapper's expression)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True, window: int = 0,
-                            softcap: float = 0.0
+                            softcap: float = 0.0, scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Recomputation backward with the kernel's arithmetic: q pre-scaled,
     p = exp(s - lse) on live entries, ds = p (dp - delta) with the softcap
-    chain rule, delta = rowsum(do * o) in float32.  q/o/do (B, T, H, hd),
+    chain rule, delta = `flash_attention_delta_ref`.  q/o/do (B, T, H, hd),
     k/v (B, S, Hkv, hd), lse (B, H, T) -> (dq, dk, dv) in the primal dtypes,
-    dk/dv summed over the GQA group."""
+    dk/dv summed over the GQA group.  ``scale`` as in the forward."""
     b, t, h, hd = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     group = h // hkv
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qg = q.float().reshape(b, t, hkv, group, hd) * scale
     dog = do.float().reshape(b, t, hkv, group, hd)
     kf, vf = k.float(), v.float()
@@ -105,8 +114,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     lse_g = lse.float().reshape(b, hkv, group, t)[..., None]
     p = torch.where(mask, torch.exp(torch.where(mask, s - lse_g, 0.0)), 0.0)
     dp = torch.einsum("bthgk,bshk->bhgts", dog, vf)
-    delta = (do.float() * o.float()).sum(-1)                   # (B, T, H)
-    delta = delta.permute(0, 2, 1).reshape(b, hkv, group, t)[..., None]
+    delta = flash_attention_delta_ref(o, do).reshape(b, hkv, group, t)
+    delta = delta[..., None]
     ds = p * (dp - delta)
     if softcap > 0:
         ds = ds * (1.0 - (s / softcap) ** 2)

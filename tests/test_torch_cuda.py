@@ -63,6 +63,10 @@ GPU_FWD_CASES = [
     (300, 300, 28, 4, 64, True, 100, 30.0, torch.bfloat16),  # group 7
     (200, 20, 4, 2, 64, True, 30, 0.0, torch.bfloat16),      # dead rows
     (200, 20, 4, 2, 64, True, 30, 0.0, torch.float32),       # dead rows
+    (200, 200, 32, 32, 80, True, 0, 0.0, torch.bfloat16),    # hd 80, padded
+    (130, 130, 4, 2, 80, True, 40, 30.0, torch.float32),     # hd 80, float32
+    (1, 77, 8, 4, 80, False, 0, 0.0, torch.bfloat16),        # hd 80, T = 1
+    (200, 200, 32, 2, 128, True, 0, 0.0, torch.bfloat16),    # group 16
 ]
 
 
@@ -107,16 +111,51 @@ def test_cuda_flash_attention_matches_plain(cuda_device, t, s, h, hkv, hd,
     assert (lse[:, :, dead] == -1e30).all()
 
 
+def _device_kernels(fn, calls=3) -> float:
+    """Device kernels a call of ``fn`` runs (torch.profiler over ``calls``
+    calls between two device spins, which are not counted; a trace that
+    caught no kernel at all is taken again, twice at most)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.name)
+        if n:
+            break
+    return n / calls
+
+
+def _decode_inputs(device, group, hd, bs, dtype, lengths=(0, 1, 17, 300),
+                   hkv=2):
+    args = _paged(3, list(lengths), hkv, group, hd, bs,
+                  -(-(max(lengths) + 1) // bs))
+    q, kp, vp, tables, lens = [torch.from_numpy(a).to(device) for a in args]
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), tables, lens
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group,hd,bs,window,softcap,dtype", [
     (2, 128, 8, 0, 0.0, torch.bfloat16), (7, 64, 32, 40, 0.0, torch.float32),
-    (8, 64, 16, 0, 30.0, torch.bfloat16), (1, 128, 16, 0, 0.0, torch.float32)])
+    (8, 64, 16, 0, 30.0, torch.bfloat16), (1, 128, 16, 0, 0.0, torch.float32),
+    (16, 128, 16, 0, 0.0, torch.bfloat16), (16, 128, 16, 0, 0.0, torch.float32),
+    (32, 64, 16, 50, 0.0, torch.bfloat16), (32, 128, 8, 0, 30.0, torch.float32),
+    (1, 80, 16, 0, 0.0, torch.bfloat16), (4, 80, 16, 30, 30.0, torch.float32),
+    (80, 64, 16, 0, 0.0, torch.bfloat16), (130, 80, 8, 0, 0.0, torch.bfloat16)])
 def test_cuda_flash_decode_matches_plain(cuda_device, group, hd, bs, window,
                                          softcap, dtype):
-    args = _paged(3, [0, 1, 17, 300], 2, group, hd, bs, -(-301 // bs))
-    q, kp, vp, tables, lens = [torch.from_numpy(a).to(cuda_device)
-                               for a in args]
-    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    """K6 against its plain version at any group (above 32 a head takes
+    several row blocks) and head_dim 64, 80 and 128: one launch per call,
+    exact zeros for a lane of length 0."""
+    q, kp, vp, tables, lens = _decode_inputs(cuda_device, group, hd, bs,
+                                             dtype)
     before = ops.flash_decode.launches
     out = ops.flash_decode(q, kp, vp, tables, lens, window=window,
                            softcap=softcap)
@@ -126,6 +165,64 @@ def test_cuda_flash_decode_matches_plain(cuda_device, group, hd, bs, window,
                                 softcap=softcap)
     torch.testing.assert_close(out.float(), want.float(), **_gpu_tol(dtype))
     assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,hd,dtype", [
+    (16, 128, torch.bfloat16), (32, 128, torch.bfloat16),
+    (2, 80, torch.bfloat16), (16, 80, torch.float32)])
+@pytest.mark.parametrize("num_splits", [1, 16, 0])
+def test_cuda_flash_decode_splits_one_launch_same_bits(cuda_device, group, hd,
+                                                       dtype, num_splits):
+    """K6 with one split, 16 and the chosen count: within tolerance of the
+    plain version (counts differ by rounding only), one device kernel per
+    call and no other (no partial buffers, no combine kernel), and the same
+    bits on two runs."""
+    from repro_torch.kernels import flash_attention as fa
+    q, kp, vp, tables, lens = _decode_inputs(
+        cuda_device, group, hd, 16, dtype, lengths=(0, 5, 700, 4096))
+    splits = fa.decode_splits(q, kp, tables, num_splits)
+    assert 1 <= splits <= 16
+
+    def call():
+        return ops.flash_decode(q, kp, vp, tables, lens,
+                                num_splits=num_splits)
+    assert _device_kernels(call) == 1
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    want = ref.flash_decode_ref(q, kp, vp, tables, lens)
+    torch.testing.assert_close(first.float(), want.float(), **_gpu_tol(dtype))
+    assert (first[0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_group_16(cuda_device):
+    """`ServeEngine(impl="flash")` at a GQA group of 16 (the chatglm3 smoke
+    config with 16 heads over one kv head) serves every request, through
+    K6 on every decode tick."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import (EngineConfig, ServeEngine,
+                                          poisson_arrivals)
+
+    cfg = dataclasses.replace(get_smoke_config("chatglm3-6b"), n_heads=16,
+                              n_kv_heads=1)
+    params = model_mod.init_model(torch.Generator(cuda_device).manual_seed(0),
+                                  cfg, device=cuda_device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 19, 33)]
+    eng = ServeEngine(params, cfg, EngineConfig(
+        max_batch=2, block_size=8, max_len=48, num_blocks=16, impl="flash"),
+        device=cuda_device)
+    ops.reset_launches()
+    out = eng.run(poisson_arrivals(prompts, max_new=6, seed=0))
+    assert len(out["outputs"]) == 3 and out["generated"] == 18
+    assert ops.flash_decode.launches > 0
+    assert ops.flash_decode.launches % cfg.num_layers == 0
 
 
 GPU_BWD_CASES = [
@@ -143,6 +240,10 @@ GPU_BWD_CASES = [
     (77, 150, 4, 2, 128, False, 0, 0.0, torch.bfloat16),    # T < S
     (150, 77, 8, 4, 64, True, 0, 0.0, torch.bfloat16),      # T > S
     (200, 20, 4, 2, 64, True, 30, 0.0, torch.bfloat16),     # dead rows
+    (128, 128, 32, 32, 80, True, 0, 0.0, torch.bfloat16),   # hd 80, padded
+    (77, 150, 4, 2, 80, False, 0, 30.0, torch.float32),     # hd 80, float32
+    (256, 256, 32, 2, 128, True, 0, 0.0, torch.bfloat16),   # group 16
+    (130, 130, 16, 1, 64, True, 50, 0.0, torch.float32),    # group 16
 ]
 
 
@@ -196,6 +297,27 @@ def test_cuda_flash_attention_bwd_bf16_same_bits(cuda_device):
         again = ops.flash_attention_bwd(q, k, v, o, lse, do)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,hd,dtype", [
+    (128, 16, 128, torch.bfloat16), (77, 14, 64, torch.bfloat16),
+    (65, 4, 128, torch.float32), (130, 32, 80, torch.bfloat16),
+    (33, 3, 80, torch.float32)])
+def test_cuda_delta_kernel_matches_plain(cuda_device, t, h, hd, dtype):
+    """K4's delta preprocess, launched alone, against
+    `ref.flash_attention_delta_ref`: float32 sums of hd products in another
+    order, and the same bits on two runs."""
+    from repro_torch.kernels import flash_attention as fa
+    _, _, _, do = _bwd_inputs(cuda_device, t, t, h, h, hd, dtype)
+    o = _bwd_inputs(cuda_device, t, t, h, h, hd, dtype, seed=2)[0]
+    got = fa.flash_attention_delta(o, do)
+    again = fa.flash_attention_delta(o, do)
+    torch.cuda.synchronize()
+    assert got.shape == (2, h, t) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = ref.flash_attention_delta_ref(o, do)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda

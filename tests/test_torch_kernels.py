@@ -76,6 +76,8 @@ FWD_CASES = [
     (1, 70, 70, 14, 2, 16, True, 16, 0.0),      # group 7 (qwen2-0.5b), window
     (1, 50, 50, 2, 1, 128, True, 0, 30.0),      # softcap, head_dim 128
     (1, 33, 48, 4, 2, 64, False, 0, 0.0),       # non-causal, T != S
+    (1, 40, 40, 4, 4, 80, True, 0, 0.0),        # head_dim 80 (stablelm-3b)
+    (1, 24, 24, 32, 2, 16, True, 0, 0.0),       # group 16 (chatglm3-6b)
 ]
 
 
@@ -101,6 +103,8 @@ BWD_CASES = [
     (1, 70, 70, 4, 1, 64, True, 16, 0.0),       # group 4, window
     (1, 50, 50, 2, 1, 128, True, 0, 30.0),      # softcap, head_dim 128
     (1, 33, 48, 4, 2, 128, False, 0, 0.0),      # non-causal, T != S
+    (1, 40, 40, 2, 2, 80, True, 0, 30.0),       # head_dim 80, softcap
+    (1, 24, 24, 16, 1, 16, True, 8, 0.0),       # group 16, window
 ]
 
 
@@ -238,8 +242,13 @@ def test_cuda_launch_rejects_cpu_tensors():
 
 
 def test_num_splits_semantics():
-    """Default min(8, max_blocks), clamped to [1, max_blocks]."""
-    assert tfa.default_num_splits(0, 3) == 3
-    assert tfa.default_num_splits(0, 40) == 8
-    assert tfa.default_num_splits(99, 5) == 5
-    assert tfa.default_num_splits(-1, 1) == 1
+    """K6's split count: ``num_splits <= 0`` fills about one wave (a block
+    on each of 132 SMs); any count is clamped to [1, min(max_blocks,
+    cluster limit)]."""
+    assert tfa.choose_num_splits(4, 8, 2, 34) == 4      # busiest serve tick
+    assert tfa.choose_num_splits(1, 8, 2, 256) == 16    # one long lane
+    assert tfa.choose_num_splits(4, 8, 2, 3) == 3       # a page a split at least
+    assert tfa.choose_num_splits(4, 8, 2, 34, 99) == 16
+    assert tfa.choose_num_splits(4, 8, 2, 5, 99) == 5
+    assert tfa.choose_num_splits(1, 8, 2, 256, cluster_max=8) == 8
+    assert tfa.choose_num_splits(1, 1, 1, 1, -1) == 1
