@@ -131,6 +131,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_mix as hm  # noqa: E402
 from repro_torch.kernels import slstm_scan as ss  # noqa: E402
+from repro_torch.kernels.profiling import graph_nodes  # noqa: E402
 from repro_torch.kernels.tolerance import BWD_TOL, LSE_TOL, TOL  # noqa: E402
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
@@ -362,30 +363,6 @@ def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float,
 
 
 # ---------------------------------------------------------- K6 measurement
-def device_kernels(fn, calls: int = 3) -> tuple[float, list]:
-    """Device kernels a call of ``fn`` runs: torch.profiler over ``calls``
-    calls between two device spins (which keep the calls' kernels inside
-    the traced window; the spins are not counted) -> (kernels per call,
-    their names).  A trace that caught no kernel at all (the profiler
-    missed the window) is taken again, twice at most."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1_000_000)
-            for _ in range(calls):
-                fn()
-            torch.cuda._sleep(1_000_000)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "spin_kernel" not in e.name]
-        if names:
-            break
-    return len(names) / calls, sorted(set(names))
-
-
 def measure_decode(timer: Timer, q, k_pool, v_pool, tables, lengths,
                    window: int, softcap: float) -> dict:
     """K6 against its plain version: error, exact zeros for dead lanes, the
@@ -403,10 +380,10 @@ def measure_decode(timer: Timer, q, k_pool, v_pool, tables, lengths,
     dead = lengths == 0
     if dead.any() and (out[dead] != 0).any():
         raise AssertionError("a lane of length 0 is not exactly zero")
-    per_call, names = device_kernels(call)
-    if per_call != 1:
-        raise AssertionError(f"K6 ran {per_call} device kernels a call, not "
-                             f"one: {names}")
+    nodes = graph_nodes(call)
+    if nodes != ["kernel"]:
+        raise AssertionError(f"a K6 call enqueued {nodes} on the device, not "
+                             f"one kernel")
     b, h, hd = q.shape
     hkv = k_pool.shape[2]
     lens = lengths.long().cpu()
@@ -431,7 +408,7 @@ def measure_decode(timer: Timer, q, k_pool, v_pool, tables, lengths,
             qt, kt, vt, attn_mask=mask))
     run = timer.stats(call)
     return {"max_abs_err": err, "tolerance": TOL[q.dtype],
-            "same_bits": True, "launches_per_call": per_call,
+            "same_bits": True, "launches_per_call": len(nodes),
             "splits": fa.decode_splits(q, k_pool, tables),
             "ms": run["mean"], "ms_spread": run, "host_ms": host_ms(call),
             "plain_ms": timer.ms(lambda: ref.flash_decode_ref(

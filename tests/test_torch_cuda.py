@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.profiling import graph_nodes
 
 
 def _paged(seed, lengths, hkv, group, hd, bs, nmax):
@@ -111,28 +112,6 @@ def test_cuda_flash_attention_matches_plain(cuda_device, t, s, h, hkv, hd,
     assert (lse[:, :, dead] == -1e30).all()
 
 
-def _device_kernels(fn, calls=3) -> float:
-    """Device kernels a call of ``fn`` runs (torch.profiler over ``calls``
-    calls between two device spins, which are not counted; a trace that
-    caught no kernel at all is taken again, twice at most)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1_000_000)
-            for _ in range(calls):
-                fn()
-            torch.cuda._sleep(1_000_000)
-            torch.cuda.synchronize()
-        n = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and "spin_kernel" not in e.name)
-        if n:
-            break
-    return n / calls
-
-
 def _decode_inputs(device, group, hd, bs, dtype, lengths=(0, 1, 17, 300),
                    hkv=2):
     args = _paged(3, list(lengths), hkv, group, hd, bs,
@@ -187,7 +166,7 @@ def test_cuda_flash_decode_splits_one_launch_same_bits(cuda_device, group, hd,
     def call():
         return ops.flash_decode(q, kp, vp, tables, lens,
                                 num_splits=num_splits)
-    assert _device_kernels(call) == 1
+    assert graph_nodes(call) == ["kernel"]
     first, again = call(), call()
     torch.cuda.synchronize()
     assert torch.equal(first, again)
