@@ -57,7 +57,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against their plain versions, each output held to its own scale, at
    xlstm-125m's training shape (B 4, T 512, H 4, hd 384, float32), the
    smoke geometry (hd 128), ragged B and T, T < chunk, hd 16 and 32, H 1,
-   bf16 zx; K8 twice gives the same bits; times beside the bound at the
+   bf16 zx, hd 384 at 8 rows, hd 512 (R partly resident), hd 20 and 200;
+   K8 twice gives the same bits; each case logs its cluster (blocks, rows
+   of R resident in shared memory, bytes); times beside the bound at the
    training shape.
 12. train-xlstm -- `run_training` trains xlstm-125m at full width (12
    layers as 6 x (mLSTM, sLSTM), d_model 768, 4 heads of 384, bf16 with
@@ -1115,16 +1117,30 @@ def phase_resume(device: torch.device) -> None:
 
 # ------------------------------------------------------ K7 / K8 measurement
 # (b, t, h, hd, block_b, chunk, zx dtype) for the K7 / K8 checks: the
-# training path's shape (xlstm-125m: B 4, T 512, H 4, hd 384), the smoke
-# geometry (hd 128), then B not a multiple of block_b, T not a multiple of
-# chunk, T < chunk, hd 16 and 32, H = 1, 5 and 8 rows in a block, bf16 zx
+# training path's shape (xlstm-125m: B 4, T 512, H 4, hd 384; 4 rows a
+# cluster), the smoke geometry (hd 128), then B not a multiple of block_b,
+# T not a multiple of chunk, T < chunk, hd 16 and 32, H = 1, 5 and 8 rows
+# in a block, bf16 zx; hd 384 at 8 rows, hd 512 (R partly resident in
+# shared memory) at 4 and 8 rows, hd 20 and 200 (no power-of-two cluster
+# divides them: the last block owns fewer units), bf16 at 4 rows; 1 row at
+# hd 90 and 2 rows at hd 45, where hd x rows is no multiple of 4 floats (the
+# second h buffer must still start on 16 bytes), and hd 45 in bf16 at 1 row
 SLSTM_CASES = [(4, 512, 4, 384, 8, 128, torch.float32),
                (4, 512, 4, 128, 8, 128, torch.float32),
                (3, 200, 2, 32, 2, 64, torch.float32),
                (2, 21, 1, 16, 8, 32, torch.float32),
                (8, 64, 4, 16, 8, 16, torch.float32),
                (5, 100, 4, 384, 8, 128, torch.bfloat16),
-               (2, 24, 2, 16, 2, 8, torch.bfloat16)]
+               (2, 24, 2, 16, 2, 8, torch.bfloat16),
+               (8, 128, 2, 384, 8, 64, torch.float32),
+               (4, 96, 2, 512, 4, 32, torch.float32),
+               (8, 64, 1, 512, 8, 32, torch.float32),
+               (3, 100, 2, 20, 4, 32, torch.float32),
+               (5, 120, 2, 200, 8, 64, torch.float32),
+               (4, 200, 4, 384, 4, 64, torch.bfloat16),
+               (1, 64, 1, 90, 8, 32, torch.float32),
+               (2, 50, 1, 45, 2, 16, torch.float32),
+               (1, 40, 2, 45, 8, 16, torch.bfloat16)]
 # h, the four bounds, dzx, dR and db, kernel vs plain, each held to its own
 # scale as K4's outputs are (`_close_scaled`).  Both sides compute in
 # float32 from the same inputs; they differ by the order of the hd- and
@@ -1181,6 +1197,11 @@ def measure_slstm(timer: Timer, zx, r, b, dh, block_b: int, chunk: int,
           "rel_err": max(x for _, x in bwd),
           "max_abs_out": [x.abs().max().item() for x in want],
           "tolerance": {"dzx": tol, "dR, db": f32}, "deterministic": True}
+    # the cluster each launched with: blocks, rows of R resident, bytes
+    for k, backward in ((k7, False), (k8, True)):
+        plan = ss.launch_plan(zx, block_b=block_b, backward=backward)
+        k["cluster"] = {key: plan[key] for key in (
+            "cluster", "resident_rows", "smem_bytes", "units")}
     if timed:
         # K7: zx, R, b read; h and the bounds written
         b7 = _bound(es * (zx.numel() + h.numel()) + rb_bytes + bound_bytes,

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import slstm_scan as ss
 from repro_torch.kernels.profiling import graph_nodes
 
 
@@ -523,6 +524,16 @@ def _scaled_close(got, want, tol):
     (3, 200, 2, 32, 2, 64, torch.float32),     # ragged B and T
     (2, 21, 1, 16, 8, 32, torch.float32),      # T < chunk, H 1
     (5, 100, 4, 128, 8, 128, torch.bfloat16),  # 8 compiled rows, bf16 zx
+    (8, 128, 2, 384, 8, 64, torch.float32),    # hd 384 at 8 rows
+    (4, 96, 2, 512, 4, 32, torch.float32),     # hd 512: R partly resident
+    (8, 64, 1, 512, 8, 32, torch.float32),     # the same at 8 rows
+    (4, 256, 4, 128, 4, 64, torch.float32),    # hd 128 (xlstm smoke)
+    (3, 100, 2, 20, 4, 32, torch.float32),     # ragged hd, a padded row
+    (5, 120, 2, 200, 8, 64, torch.float32),    # ragged hd at 8 rows
+    (4, 200, 4, 384, 4, 64, torch.bfloat16),   # bf16 at the training width
+    (1, 64, 1, 90, 8, 32, torch.float32),      # 1 row, hd NR not 4-aligned
+    (2, 50, 1, 45, 2, 16, torch.float32),      # odd hd at 2 rows
+    (1, 40, 2, 45, 8, 16, torch.bfloat16),     # odd hd at 1 row, bf16
 ])
 def test_cuda_slstm_scan_matches_plain(cuda_device, b, t, h, hd, bb, chunk,
                                        dtype):
@@ -551,6 +562,34 @@ def test_cuda_slstm_scan_matches_plain(cuda_device, b, t, h, hd, bb, chunk,
         assert torch.equal(a, c)
         assert a.dtype == w.dtype and a.shape == w.shape
         _scaled_close(a, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_cuda_slstm_scan_every_cluster_size(cuda_device, cluster):
+    """K7 and K8 forced to each cluster size at hd 128 (128 down to 8 units
+    a block; at 1 block the R slice is only partly resident): each within
+    the plain version's tolerance, K8 the same bits twice."""
+    zx, r, bias, dh = _slstm_inputs(cuda_device, 4, 96, 2, 128,
+                                    torch.float32, seed=3)
+    plans = [ss.cluster_plan(zx.device, 128, 4, zx.dtype, bwd, cluster)
+             for bwd in (False, True)]
+    assert all(p["clusters_at_once"] > 0 for p in plans)
+    assert (plans[0]["resident_rows"] < 128) == (cluster == 1)
+    h_out, bounds = ss._fwd(zx, r, bias, 4, 32, True, cluster)
+    got = ss._bwd(zx, r, bias, bounds, dh, 4, 32, cluster)
+    again = ss._bwd(zx, r, bias, bounds, dh, 4, 32, cluster)
+    torch.cuda.synchronize()
+    kw = dict(block_b=4, chunk=32)
+    want_h, want_bounds = ref.slstm_scan_fwd_res_ref(zx, r, bias, **kw)
+    _scaled_close(h_out, want_h, 1e-4)
+    for g, w in zip(bounds, want_bounds):
+        torch.testing.assert_close(g, w, atol=1e-4 * max(
+            1.0, w.abs().max().item()), rtol=1e-4)
+    want = ref.slstm_scan_bwd_ref(zx, r, bias, bounds, dh, **kw)
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        _scaled_close(a, w, 1e-4)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,9 @@ against the Pallas kernels in interpret mode and `jax.grad`.
 
 Inputs are made from a seed with numpy and handed to both packages.
 Shapes follow `tests/test_kernels.py`: T not a chunk multiple, B not a
-block multiple, T < chunk, hd 16 and 32, H = 1.
+block multiple, T < chunk, hd 16 and 32, H = 1; then hd 512 and hd 200 at
+small T, widths the CUDA kernels split unevenly across a cluster, so that
+the plain versions the card holds them to are themselves held to JAX.
 
 Tolerances (float32 on both sides; the two frameworks sum the hd-term
 recurrent products, and the backward's dR / db sums, in other orders):
@@ -33,7 +35,9 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 CASES = [(2, 21, 2, 16, 8, 8),      # T not a chunk multiple
          (3, 17, 1, 32, 2, 32),     # B not a block multiple, T < chunk, H 1
          (8, 64, 4, 16, 4, 16),
-         (5, 40, 2, 16, 3, 16)]     # 2 padded rows in the last block
+         (5, 40, 2, 16, 3, 16),     # 2 padded rows in the last block
+         (2, 6, 1, 512, 2, 4),      # hd 512, the kernels' widest
+         (3, 7, 2, 200, 4, 4)]      # a ragged hd (no power-of-two split)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,9 +49,12 @@ def _one_torch_thread():
 
 
 def _inputs(b, t, h, hd, seed=0):
+    """R scaled 0.3 up to hd 32 and as 1 / sqrt(hd) beyond, so h R has
+    the same spread at every width (as the model's init scales it)."""
     rng = np.random.default_rng(seed + b * t + hd)
     zx = (0.5 * rng.standard_normal((b, t, h, 4 * hd))).astype(np.float32)
-    r = (0.3 * rng.standard_normal((h, hd, 4 * hd))).astype(np.float32)
+    r = (min(0.3, 1.7 / hd ** 0.5)
+         * rng.standard_normal((h, hd, 4 * hd))).astype(np.float32)
     bias = (0.1 * rng.standard_normal((h, 4 * hd))).astype(np.float32)
     dh = rng.standard_normal((b, t, h, hd)).astype(np.float32)
     return zx, r, bias, dh
@@ -201,3 +208,33 @@ def test_geometry_is_the_tpu_padding(b, t, bb, chunk):
                                       chunk=chunk, interpret=True)
     assert got[2:] == bounds[0].shape[:2]
     assert got[:2] == (min(bb, b), min(chunk, t))
+
+
+@pytest.mark.parametrize("hd,rows,limit,want", [
+    (384, 4, 16, 16),   # xlstm-125m: 24 units a block
+    (384, 8, 16, 16),
+    (384, 4, 8, 8),     # a card without clusters of 16
+    (128, 4, 16, 16),   # 8 units a block
+    (512, 8, 16, 16),
+    (200, 8, 16, 16),   # 13 units a block, the last 5
+    (20, 4, 16, 2),     # 4 blocks would own 5 units, below MIN_UNITS
+    (16, 8, 16, 2),
+    (1, 1, 16, 1),
+])
+def test_choose_cluster(hd, rows, limit, want):
+    """The largest cluster with at least `MIN_UNITS` units a block, no
+    empty block, a thread for every (row, unit) pair, and one the card
+    schedules; offered only the size it chose, it takes that size."""
+    got = ss.choose_cluster(hd, rows, lambda cs: cs <= limit)
+    assert got == want
+    u = -(-hd // got)
+    assert rows * u <= ss.THREADS and (got - 1) * u < hd
+    assert u >= ss.MIN_UNITS or got == 1
+    assert ss.choose_cluster(hd, rows, lambda cs: cs == got) == got
+
+
+def test_choose_cluster_raises_where_nothing_fits():
+    """hd 512 at 8 rows needs 8 blocks or more (a thread a pair): a card
+    that schedules only single blocks gets an error, not another kernel."""
+    with pytest.raises(ValueError, match="no cluster"):
+        ss.choose_cluster(512, 8, lambda cs: cs == 1)

@@ -11,13 +11,18 @@ Mutants:
 * ``gate``  -- K8 writes a zero gradient for the z gate;
 * ``route`` -- K8 sends the stabiliser's adjoint dm always to the forget
   branch (the max routing dropped);
-* ``order`` -- K8 walks the chunks first to last.
+* ``order`` -- K8 walks the chunks first to last;
+* ``slice`` -- every block of a cluster loads cluster rank 0's slice of R
+  (K7 and K8);
+* ``rank``  -- K8 sums the dh partials of one rank fewer than the cluster
+  holds.
 
 For each mutant and case it prints one JSON line: every output's error
 over the check's tolerance (1e-4 of the output's scale), elementwise and
 as a relative norm, and the worst of them.  A check that catches a mutant
 shows it far above 1.  The copies go to ``build/mutants/`` (git-ignored),
-each with its own build directory.
+each with its own build directory and only ``csrc/slstm_scan.cu`` of the
+CUDA sources (the others are not needed here).
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ MUTANTS = {
     "route": ("const bool sel = a >= zi;", "const bool sel = true;"),
     "order": ("for (int tc = nt - 1; tc >= 0; --tc) {",
               "for (int tc = 0; tc < nt; ++tc) {"),
+    "slice": ("const int j = rank * u + jj;", "const int j = jj;"),
+    "rank": ("for (int q = 1; q < cs; ++q) sum += in[q * NR * u];",
+             "for (int q = 1; q < cs - 1; ++q) sum += in[q * NR * u];"),
 }
 CASES = [(4, 512, 4, 384, 8, 128), (3, 200, 2, 32, 2, 64)]
 TOL = 1e-4
@@ -81,6 +89,9 @@ def main() -> int:
         shutil.copytree(ROOT / "src" / "repro_torch", copy / "src" /
                         "repro_torch", ignore=shutil.ignore_patterns(
                             "__pycache__"))
+        for other in (copy / "src" / "repro_torch" / "csrc").glob("*.cu"):
+            if other.name != "slstm_scan.cu":
+                other.unlink()
         src = copy / "src" / "repro_torch" / "csrc" / "slstm_scan.cu"
         text = src.read_text()
         if text.count(old) != 1:
