@@ -52,6 +52,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 10. resume -- at the smoke config (a full-width full-state checkpoint is
    ~30 GB on disk): killed at slot 4 and resumed = the uninterrupted run,
    bit for bit; `ServeEngine.from_checkpoint` serves that directory.
+10b. train-ladder -- `run_training` trains qwen2-0.5b at full width (24
+   layers, d_model 896, 14 / 2 heads of 64, tied, bf16, seeded random
+   weights) as W = 4 (2 x 2 on a ring, rates 1.0/0.8/1.0/0.6, sgd eta
+   0.05, tau 1, q 2: two_stage subnet rounds, a hub round every second
+   slot), 4 slots of 4 x 128 tokens, through K3 and K4, once uncompressed
+   (two_stage, the yardstick) and once per compressed rung (int8, int8_ef,
+   int4_ef, bf16, topk_ef, powersgd): seconds per slot, each hub round's
+   synchronised ms, peak memory, `wire_bytes` against the two_stage f32
+   wire, u_k loss.  Per rung: (a) one hub round of the trained K
+   projections (one JAX leaf over 24 super-blocks) and an all-ones norm
+   (the top-k tie case), on the card against the CPU within
+   `tolerance.LADDER_TOL`; (b) a consensus fleet stays within the rung's
+   bound after one hub round; (c) a stateful rung's state is nonzero after
+   its first hub round and goes through a checkpoint bit for bit; (d) a
+   finite loss.
+10c. train-overlap -- qwen3-1.7b with phase 7's settings for 4 slots,
+   ``overlap="none"`` and ``"chunked"`` (4 chunks): the two u_k within one
+   bf16 ulp of the mixing's operands, the chunked peak memory at most two
+   chunk slabs above the unchunked, the event slots' seconds.
 11. xlstm-kernels -- the sLSTM scan forward K7 (h and the four
    chunk-entering states) and backward K8 (dzx, dR, db, from K7's states)
    against their plain versions, each output held to its own scale, at
@@ -134,7 +153,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_mix as hm  # noqa: E402
 from repro_torch.kernels import slstm_scan as ss  # noqa: E402
 from repro_torch.kernels.profiling import graph_nodes  # noqa: E402
-from repro_torch.kernels.tolerance import BWD_TOL, LSE_TOL, TOL  # noqa: E402
+from repro_torch.kernels.tolerance import (BWD_TOL, LSE_TOL, TOL,  # noqa: E402
+                                           align_columns, ladder_error)
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -143,6 +163,7 @@ from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.serve.engine import (PROMPT_PAD, EngineConfig,  # noqa: E402
                                       ServeEngine, poisson_arrivals)
+from repro_torch.train import checkpoint  # noqa: E402
 from repro_torch.train.train_step import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.train.train_step import per_worker_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -1918,6 +1939,300 @@ def phase_sim_paper(device: torch.device, smi: str) -> dict:
 
 
 # ------------------------------------------------------------------- main
+# -------------------------------------------- compression ladder, overlap
+LADDER = ("int8", "int8_ef", "int4_ef", "bf16", "topk_ef", "powersgd")
+# tau = 1, q = 2: a two_stage subnet round in odd slots, the rung's hub
+# round in even ones
+LADDER_MLL = dict(tau=1, q=2, eta=0.05, hub_topology="ring",
+                  worker_rates=(1.0, 0.8, 1.0, 0.6))
+# consensus input (every worker equal): the largest error one hub round may
+# leave, per element, as a share of max|x| (integer rungs: half a level),
+# of |x| itself (bf16: half a bf16 ulp), or of the k-th largest |x|
+# (top-k drops everything below its threshold); float32 rounding on top
+CONSENSUS_BOUND = {"int8": 0.5 / 127, "int8_ef": 0.5 / 127,
+                   "int4_ef": 0.5 / 7, "bf16": 2.0 ** -9, "topk_ef": 1.0}
+
+
+class HubClock:
+    """Synchronised milliseconds of each hub round of one strategy (its
+    class's ``hub_with_state``), and whether the state it returned first
+    held a nonzero leaf."""
+
+    def __init__(self, name: str):
+        self.cls = protocol.MIXING_REGISTRY[name]
+        self.ms, self.first_state_nonzero = [], None
+        self._hub = self.cls.hub_with_state
+        self._own = "hub_with_state" in vars(self.cls)
+
+    def __enter__(self):
+        def hub(strategy, stacked, st, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._hub(strategy, stacked, st, state)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            if self.first_state_nonzero is None:
+                self.first_state_nonzero = any(
+                    bool(x.abs().max() > 0) for x in tree_leaves(out[1])
+                    if x.numel())
+            return out
+        self.cls.hub_with_state = hub
+        return self
+
+    def __exit__(self, *exc):
+        if self._own:
+            self.cls.hub_with_state = self._hub
+        else:                               # inherited: unshadow it
+            del self.cls.hub_with_state
+
+
+def _ladder_subtree(tree: dict, norm: torch.Tensor | None = None) -> dict:
+    """The check tree of a params-shaped tree: every super-block's K
+    projection (one JAX leaf, (W, 24, 896, 2, 64) for qwen2-0.5b) and the
+    final norm's scale (``norm`` replaces it: all ones, the top-k tie
+    case)."""
+    return {"blocks": [{"pos0": {"mixer": {"wk": b["pos0"]["mixer"]["wk"]}}}
+                       for b in tree["blocks"]],
+            "final_norm": {"scale": tree["final_norm"]["scale"]
+                           if norm is None else norm}}
+
+
+def _ladder_state(name: str, state, norm_ef: torch.Tensor | None = None):
+    """The check tree's part of a rung's trained mixing state (``norm_ef``
+    replaces the final norm's residual)."""
+    if name == "powersgd":
+        q = state["q"]
+        return {"ef": _ladder_subtree(state["ef"], norm=norm_ef),
+                "q": {"blocks": {"pos0": {"mixer": {
+                    "wk": q["blocks"]["pos0"]["mixer"]["wk"]}}},
+                      "final_norm": {"scale": q["final_norm"]["scale"]}}}
+    if isinstance(state, tuple):
+        return state
+    return _ladder_subtree(state, norm=norm_ef)
+
+
+def ladder_card_vs_cpu(name: str, params: dict, state, st_card, network
+                       ) -> float:
+    """Check (a): one hub round of the trained check tree (float32) on the
+    card against the same round through the port on the CPU."""
+    ones = torch.ones_like(params["final_norm"]["scale"], dtype=torch.float32)
+    sub = tree_map(lambda x: x.float().clone(), _ladder_subtree(params, ones))
+    sub_state = tree_map(torch.clone, _ladder_state(
+        name, state, norm_ef=torch.zeros_like(ones)))
+    cpu = (tree_map(lambda x: x.cpu(), sub),
+           tree_map(lambda x: x.cpu(), sub_state))
+    strat = protocol.get_mixing(name)
+    st_cpu = build_state(MLLConfig(**LADDER_MLL, mixing=name), network,
+                         device="cpu")
+    got = strat.hub_with_state(sub, st_card, sub_state)
+    want = strat.hub_with_state(cpu[0], st_cpu, cpu[1])
+    gp, gs = (interop.flatten(t, worker_axis=True) for t in got)
+    wp, ws = (interop.flatten(t, worker_axis=True) for t in want)
+    scale = max(float(np.abs(v).max()) for v in wp.values())
+    err = max(ladder_error(name, torch.from_numpy(gp[k]),
+                           torch.from_numpy(wp[k])) for k in wp)
+    for k in ws:
+        g, v = torch.from_numpy(gs[k]), torch.from_numpy(ws[k])
+        if k.startswith("q::"):
+            g = align_columns(g, v)
+        err = max(err, ladder_error(name, g, v, scale=scale))
+    return err
+
+
+def ladder_consensus(name: str, params: dict, st_card) -> float:
+    """Check (b): a consensus fleet (worker 0's check tree on every worker)
+    after one hub round stays within the rung's bound of its input."""
+    sub = _ladder_subtree(params)
+    fleet = tree_map(lambda x: x[0].float().expand_as(x).contiguous(), sub)
+    before = tree_map(torch.clone, fleet)
+    strat = protocol.get_mixing(name)
+    out, _ = strat.hub_with_state(fleet, st_card, strat.init_state(fleet))
+    worst = 0.0
+    for (key, xs, blk), (_, ys, _) in zip(interop.leaf_groups(before),
+                                          interop.leaf_groups(out)):
+        x = torch.stack(xs, 1) if blk else xs[0]
+        y = torch.stack(ys, 1) if blk else ys[0]
+        err = (y - x).abs()
+        if name == "powersgd":
+            # a projection of each hub's matrix: never longer than it;
+            # vector leaves cross exact
+            ok = (float(err.norm()) <= float(x.norm()) * (1 + 1e-5)
+                  if x.dim() >= 3 else float(err.max()) <= 1e-6 *
+                  float(x.abs().max()))
+        elif name == "bf16":
+            ok = bool((err <= CONSENSUS_BOUND[name] * x.abs()
+                       + 1e-6 * x.abs().max()).all())
+        else:
+            ref = x.abs().max()
+            if name == "topk_ef":
+                flat = x[0].abs().flatten()
+                k = protocol._topk_count(flat.numel(), 1 / 32)
+                ref = torch.topk(flat, k).values[-1]
+            ok = float(err.max()) <= float(CONSENSUS_BOUND[name] * ref
+                                           + 1e-6 * x.abs().max())
+        if not ok:
+            raise AssertionError(f"train-ladder {name}: consensus {key} "
+                                 f"moved by {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def ladder_state_roundtrip(name: str, params: dict, state) -> int:
+    """Check (c): the check tree's part of the trained state goes through
+    `checkpoint.save_state` / `restore_state` bit for bit.  -> leaves."""
+    sub = _ladder_subtree(params)
+    sub_state = _ladder_state(name, state)
+    ts = protocol.MLLTrainState(sub, {"counts": torch.zeros(
+        4, dtype=torch.int32)}, sub_state, torch.tensor(4, dtype=torch.int32))
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_state(tmp, ts, slot=4)
+        back, slot, _ = checkpoint.restore_state(tmp, ts)
+    la, lb = tree_leaves(ts.mix_state), tree_leaves(back.mix_state)
+    if slot != 4 or len(la) != len(lb) or not all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb)):
+        raise AssertionError(f"train-ladder {name}: mixing state changed "
+                             "through a checkpoint")
+    return len(la)
+
+
+def phase_train_ladder(device: torch.device, smi: str) -> dict:
+    """Every compression rung trains qwen2-0.5b at full width through
+    `run_training` (K3 + K4), then checks (a) card = CPU on one hub round
+    of the check tree, (b) consensus within the rung's bound, (c) stateful
+    rungs' state nonzero after the first hub round and through a
+    checkpoint bit for bit, (d) a finite loss.  An uncompressed two_stage
+    run first is the yardstick of times, memory and loss."""
+    cfg = get_config("qwen2-0.5b")
+    n_attn = _layers_of(cfg, "attn")
+    rows = {}
+    ops.reset_launches()
+    seen = {"flash_attention": 0, "flash_attention_bwd": 0}
+    for name in ("two_stage",) + LADDER:
+        mll = MLLConfig(**LADDER_MLL, mixing=name)
+        loop = _train_loop(steps=4, eval_every=4)
+        logs = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with HubClock(name) as hub, SlotClock() as clock:
+            out = run_training(cfg, mll, loop, log=logs.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        hist = out["history"]
+        w = out["network"].num_workers
+        now = {k: getattr(ops, k).launches for k in seen}
+        got = {k: now[k] - seen[k] for k in seen}
+        seen = now
+        want = {"flash_attention": n_attn * (w * 4 + len(hist["step"])),
+                "flash_attention_bwd": n_attn * w * 4}
+        if got != want:
+            raise AssertionError(f"train-ladder {name}: launches {got}, "
+                                 f"expected {want}")
+        if not np.isfinite(hist["avg_loss"]).all() or not np.isfinite(
+                hist["loss"]).all():
+            raise AssertionError(f"train-ladder {name}: non-finite loss "
+                                 f"{hist}")
+        state = out["train_state"]
+        st = build_state(mll, out["network"], device=device)
+        spec = protocol.wire_spec(state.params)
+        wire = protocol.get_mixing(name).wire_bytes(st, spec)
+        f32_wire = protocol.get_mixing("two_stage").wire_bytes(st, spec)
+        stateful = bool(tree_leaves(state.mix_state))
+        if stateful and not hub.first_state_nonzero:
+            raise AssertionError(f"train-ladder {name}: the state after the "
+                                 "first hub round is all zero")
+        card_err = consensus = leaves = None
+        if name in LADDER:
+            card_err = ladder_card_vs_cpu(name, state.params, state.mix_state,
+                                          st, out["network"])
+            consensus = ladder_consensus(name, state.params, st)
+            leaves = (ladder_state_roundtrip(name, state.params,
+                                             state.mix_state)
+                      if stateful else 0)
+        for line in logs:
+            log("train-ladder", f"{name}: {line}")
+        rows[name] = dict(
+            slot_seconds=clock.seconds, hub_ms=hub.ms, peak_gib=peak,
+            wire_bytes=wire, two_stage_wire_bytes=f32_wire,
+            wire_ratio=wire / f32_wire, u_k_loss=hist["avg_loss"],
+            worker_loss=hist["loss"], run_training_s=wall,
+            card_vs_cpu_max_abs_err=card_err, consensus_max_abs_err=consensus,
+            state_leaves_round_tripped=leaves, launches=got)
+        log("train-ladder", f"{name}: {json.dumps(rows[name])} on {smi}")
+        del out, state, st
+    check_tensor_cores("train-ladder")
+    return dict(rows=rows, launches={k: seen[k] for k in seen})
+
+
+def phase_train_overlap(cfg, device: torch.device, smi: str) -> dict:
+    """qwen3-1.7b with phase 7's settings for 4 slots from one seed, with
+    ``overlap="none"`` and ``overlap="chunked"`` (4 chunks): the two u_k
+    leaf by leaf within the reference's reduction-order change at bf16
+    (below), the event slots' seconds and both runs' peak memory."""
+    mll = MLLConfig(**TRAIN_MLL)
+    runs = {}
+    ops.reset_launches()
+    for overlap in ("none", "chunked"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        with SlotClock() as clock:
+            out = run_training(cfg, mll, _train_loop(
+                steps=4, eval_every=4, overlap=overlap, overlap_chunks=4),
+                log=lambda *a: None)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        hist = out["history"]
+        if not np.isfinite(hist["avg_loss"]).all():
+            raise AssertionError(f"train-overlap {overlap}: {hist}")
+        # u_k leaves the card, so the next run's peak is its own
+        runs[overlap] = dict(u=interop.flatten(out["avg_params"]), peak=peak,
+                             seconds=clock.seconds, loss=hist["avg_loss"],
+                             spec=packing.pack_spec(out["train_state"].params))
+        del out
+    check_tensor_cores("train-overlap")
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "flash_attention_bwd": ops.flash_attention_bwd.launches}
+    n_attn = _layers_of(cfg, "attn")
+    want = {"flash_attention": 2 * n_attn * (4 * 4 + 1),
+            "flash_attention_bwd": 2 * n_attn * 4 * 4}
+    if launches != want:
+        raise AssertionError(f"train-overlap: launches {launches}, expected "
+                             f"{want}")
+    # The fleet is bf16.  "none" mixes in bf16 (the subnet mean, then the
+    # hub rolls, each rounded to bf16); "chunked" contracts the dense
+    # operator in float32 and rounds once.  With v = 1/2 and H's 1/2 the
+    # subnet rounds agree exactly, the hub round by its double rounding:
+    # one bf16 ulp of its operands.  Where the two subnet means cancel, the
+    # ulp of the result is smaller than theirs: bound every element by one
+    # bf16 ulp of its own value and one of the leaf's largest value.
+    worst, spread = 0.0, 0.0
+    for (key, a), (_, b) in zip(runs["none"]["u"].items(),
+                                runs["chunked"]["u"].items()):
+        a, b = torch.from_numpy(a).double(), torch.from_numpy(b).double()
+        err = (a - b).abs()
+        bound = 2.0 ** -7 * (a.abs() + 2.0 ** -1 * a.abs().max())
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"train-overlap: u_k {key} differs by "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+        spread = max(spread, float((err / (a.abs().max() + 1e-30)).max()))
+    spec = runs["chunked"]["spec"]
+    slab = 4 * spec.num_workers * max(
+        ch.size for ch in packing.chunk_views(spec, 4))
+    grew = runs["chunked"]["peak"] - runs["none"]["peak"]
+    if grew > 2 * slab:
+        raise AssertionError(f"train-overlap: the chunked peak exceeds the "
+                             f"unchunked one by {grew} B > 2 slabs of {slab}")
+    row = {k: dict(peak_gib=v["peak"] / 2**30, slot_seconds=v["seconds"],
+                   event_slot_seconds=[v["seconds"][1], v["seconds"][3]],
+                   u_k_loss=v["loss"]) for k, v in runs.items()}
+    row.update(u_k_max_abs_diff=worst, u_k_max_diff_of_leaf_max=spread,
+               chunk_slab_gib=slab / 2**30, launches=launches)
+    log("train-overlap", f"{json.dumps(row)} on {smi}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2005,6 +2320,10 @@ def main() -> int:
     del u_k
     torch.cuda.empty_cache()
     phase_resume(device)
+    ladder = phase_train_ladder(device, smi)
+    torch.cuda.empty_cache()
+    overlap = phase_train_overlap(cfg, device, smi)
+    torch.cuda.empty_cache()
 
     q, k, v, o, lse, do, kw = bwd_rec.call
     k4 = measure_bwd(timer, q, k, v, o, lse, do, kw["causal"], kw["window"],
@@ -2049,11 +2368,15 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:148",
              launches=launches["flash_attention"]
              + group16_launches["flash_attention"]
-             + train_launches["flash_attention"] + sim_launches["K3"],
+             + train_launches["flash_attention"]
+             + ladder["launches"]["flash_attention"]
+             + overlap["launches"]["flash_attention"] + sim_launches["K3"],
              launches_by_path={
                  "serve": launches["flash_attention"],
                  "serve-group16": group16_launches["flash_attention"],
                  "train": train_launches["flash_attention"],
+                 "train-ladder": ladder["launches"]["flash_attention"],
+                 "train-overlap": overlap["launches"]["flash_attention"],
                  "sim-qwen2": sim_launches["K3"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention"] for path, n in TC_LAUNCHES.items()
@@ -2076,9 +2399,13 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:473",
              launches=train_launches["flash_attention_bwd"]
+             + ladder["launches"]["flash_attention_bwd"]
+             + overlap["launches"]["flash_attention_bwd"]
              + sim_launches["K4"],
              launches_by_path={
                  "train": train_launches["flash_attention_bwd"],
+                 "train-ladder": ladder["launches"]["flash_attention_bwd"],
+                 "train-overlap": overlap["launches"]["flash_attention_bwd"],
                  "sim-qwen2": sim_launches["K4"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention_bwd"]

@@ -12,10 +12,12 @@ Ported so far:
   and the attention transformer it runs;
 * the production trainer -- ``launch.train`` -> ``launch.harness`` ->
   ``core.protocol``: the two-level network, readiness-policy plans, the
-  gated inner optimizers, dense / two_stage / ppermute mixing, full
-  protocol checkpoints in the JAX on-disk format, and u_k handed to
-  ``ServeEngine``; it trains the attention transformers and xLSTM (mLSTM
-  and sLSTM blocks);
+  gated inner optimizers, every registered mixing strategy (dense /
+  two_stage / ppermute and the compression ladder: bf16, int8, int8_ef,
+  int4_ef, topk_ef, powersgd), the chunked overlap of mixing events, full
+  protocol checkpoints in the JAX on-disk format (the mixing state
+  included), and u_k handed to ``ServeEngine``; it trains the attention
+  transformers and xLSTM (mLSTM and sLSTM blocks);
 * the simulator and the timeline executors -- ``simulate`` (the paper's
   Algorithm 1 in matrix form) and ``run_timeline`` (readiness-policy plans
   on a slot clock, event-sparse or every slot), with packing

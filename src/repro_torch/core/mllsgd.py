@@ -24,8 +24,13 @@ import torch
 
 from repro_torch.core import protocol
 from repro_torch.core.hierarchy import MLLSchedule, MultiLevelNetwork
-from repro_torch.core.protocol import (MLLState, gate_sample,
-                                       gated_sgd_update, state_from_network)
+# re-exported, as in the JAX package
+from repro_torch.core.protocol import (  # noqa: F401
+    MLLState, MLLTrainState, PHASE_HUB, PHASE_LOCAL, PHASE_SUBNET,
+    gate_sample, gated_sgd_update, hub_average_dense, hub_average_int8,
+    hub_average_int8_ef, hub_average_ppermute, hub_average_two_stage,
+    init_error_feedback, phase_of, state_from_network, subnet_average_dense,
+    subnet_average_two_stage)
 from repro_torch.optim import optimizers as optim_mod
 
 Tree = Any
@@ -44,7 +49,7 @@ class MLLConfig:
     hub_topology: str = "complete"          # topology over hubs
     worker_rates: tuple[float, ...] | float = 1.0   # p_i (scalar = uniform)
     worker_weights: tuple[float, ...] | None = None  # w_i (None = uniform)
-    mixing: str = "dense"                   # dense | two_stage | ppermute
+    mixing: str = "dense"                   # protocol.available_mixing()
     mix_dtype: str | None = None            # e.g. "bfloat16"
     accum_dtype: str = "float32"            # microbatch accumulator dtype
     inner_opt: str = "sgd"                  # "sgd" | "momentum" | "adamw"

@@ -14,10 +14,11 @@ last hub round as an *outer gradient* and apply Nesterov momentum to it:
 With lr_out = 1 and beta = 0 this reduces to the paper's hub step
 (anchor_k = avg_k).  The Z-average comes from the mixing-strategy registry
 (`repro_torch.core.protocol`), so the outer step composes with every
-ported strategy; the compression strategies raise `NotImplementedError`
-there (ROADMAP.md Queue 1).  As in the protocol engine, the stacked params
-are updated in place (here: replaced by the anchor); the anchor and
-momentum are tensors of their own.
+registered strategy, the compression ladder included: pass ``cfg`` to
+`init_outer_state` so the outer state carries a stateful strategy's state
+(e.g. int8_ef residuals) under ``"mixing"``.  As in the protocol engine,
+the stacked params are updated in place (here: replaced by the anchor);
+the anchor and momentum are tensors of their own.
 
 Reference: Douillard et al., "DiLoCo: Distributed Low-Communication
 Training of Language Models" (arXiv:2311.08105), adapted to the MLL-SGD
@@ -65,12 +66,20 @@ def init_outer_state(stacked_params: Tree,
 @torch.no_grad()
 def outer_hub_step(stacked: Tree, outer: Tree, cfg: MLLConfig,
                    st: MLLState, ocfg: OuterConfig) -> tuple[Tree, Tree]:
-    """The hub-phase update: Z-average (any ported mixing strategy), then
-    Nesterov on the outer delta; the workers restart from the new anchor
+    """The hub-phase update: Z-average (any registered mixing strategy),
+    then Nesterov on the outer delta; the workers restart from the new anchor
     (written into ``stacked`` in place)."""
     strategy = resolve_mixing(cfg)
-    avg, new_mix = strategy.hub_with_state(stacked, st,
-                                           outer.get("mixing", ()))
+    mix_state = outer.get("mixing", ())
+    empty_slot = isinstance(mix_state, tuple) and not mix_state
+    if empty_slot and tree_leaves(strategy.init_state(stacked)):
+        raise ValueError(
+            f"mixing strategy {strategy.name!r} is stateful; build the outer "
+            "state with init_outer_state(params, cfg) so its state (e.g. "
+            "error-feedback residuals) is carried between hub rounds")
+    avg, new_mix = strategy.hub_with_state(stacked, st, mix_state)
+    if empty_slot:
+        new_mix = mix_state
 
     new_anchor, new_mom = [], []
     for anchor, a, m in zip(tree_leaves(outer["anchor"]), tree_leaves(avg),

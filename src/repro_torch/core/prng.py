@@ -16,13 +16,21 @@ port's gated trajectory is the reference's without injecting θ:
   for the flat index i;
 * ``uniform(key, (n,))``: ``(bits >> 9) | 0x3F800000`` read as float32,
   minus 1;
+* ``normal(key, (n,))``: a uniform on ``[nextafter(-1, 0), 1)`` (the
+  ``[0, 1)`` draw times 2, plus the low end), then ``sqrt(2) *
+  erf_inv(u)`` with XLA's single-precision ``erf_inv`` polynomial (Giles
+  2010), its multiply-adds fused as XLA fuses them.  ``log1p`` is
+  rounded from float64 here; XLA's own ``log1p`` is not always correctly
+  rounded, so about 1% of the draws differ from ``jax.random.normal`` in
+  the last bit or two (tests/test_torch_prng.py);
 * ``randint(key, (n,), lo, hi)`` with int32: ``k1, k2 = split(key, 2)``,
   32 random bits from each, then ``((hi_bits % span) * m + lo_bits % span)
   % span`` with ``m = (2^16 % span)^2 % span``, in wrapping uint32 (JAX's
   ``_randint``).
 
 The simulator's sampler (`repro_torch.core.timeline`) draws its batch
-indices and gates from these, so its trajectory is the JAX package's.
+indices and gates from these, so its trajectory is the JAX package's;
+PowerSGD mixing draws its initial factors with `normal`.
 Everything here runs on the host; the draws are a few words per step.
 """
 from __future__ import annotations
@@ -106,3 +114,40 @@ def randint(key: tuple[int, int], n: int, lo: int, hi: int) -> np.ndarray:
         off = (random_bits(k1, n) % span) * mult + random_bits(k2, n) % span
         off = off % span
         return (np.int64(lo) + off.astype(np.int64)).astype(np.int32)
+
+
+# XLA's float32 erf_inv: p(w) for w = -log1p(-x^2) < 5 (at w - 2.5) and
+# for w >= 5 (at sqrt(w) - 3), highest power first
+_ERFINV_LT5 = np.array([2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                        -4.39150654e-06, 0.00021858087, -0.00125372503,
+                        -0.00417768164, 0.246640727, 1.50140941], np.float32)
+_ERFINV_GE5 = np.array([-0.000200214257, 0.000100950558, 0.00134934322,
+                        -0.00367342844, 0.00573950773, -0.0076224613,
+                        0.00943887047, 1.00167406, 2.83297682], np.float32)
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv``: ``x * p(w)`` with the Horner steps as
+    fused multiply-adds (a float32 product is exact in float64, so one
+    float64 add and a rounding to float32 stand in for the fused op)."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore"):               # log1p(-1) = -inf
+        w = (-np.log1p((x * -x).astype(np.float64))).astype(np.float32)
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5),
+                 np.sqrt(w) - np.float32(3.0)).astype(np.float64)
+    p = np.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).astype(np.float32)
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = np.where(lt, lo, hi).astype(np.float64)
+        p = (p.astype(np.float64) * w + c).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        return np.where(np.abs(x) == 1, x * np.float32(np.inf),
+                        p * x).astype(np.float32)
+
+
+def normal(key: tuple[int, int], n: int) -> np.ndarray:
+    """``jax.random.normal(key, (n,), jnp.float32)`` (reshape the result
+    for another shape: the draws follow the flat index)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = np.maximum(lo, uniform(key, n) * (np.float32(1.0) - lo) + lo)
+    return np.float32(np.sqrt(2)) * erf_inv(u)

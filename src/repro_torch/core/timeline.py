@@ -498,52 +498,79 @@ def apply_event_operator(stacked: Tree, op: torch.Tensor) -> Tree:
     return protocol._einsum_operator(op, stacked, None)
 
 
+def _chunkwise(ins: list[Tree], num_chunks: int,
+               fn: Callable[..., torch.Tensor], out: Tree | None) -> Tree:
+    """The packed-buffer column chunks of ``ins`` (trees of one layout)
+    one at a time: for each `packing.chunk_views` chunk, the (W, hi - lo)
+    float32 slab of every input tree is gathered from the leaf slices the
+    chunk spans, ``fn(*slabs)`` maps them to the chunk's (W, hi - lo)
+    result, and that is written into those slices of ``out``'s leaves
+    (``ins[0]``'s layout; None: new leaves), rounded once to each leaf's
+    dtype.  Never more than one chunk is packed at a time, and every
+    contraction here reduces over the worker axis only, so the result
+    equals the whole-buffer form (`packing.pack`, then ``fn`` per column
+    range, then `packing.unpack`) bit for bit."""
+    spec = packing.pack_spec(ins[0])
+    w = spec.num_workers
+    leaves = [tree_leaves(t) for t in ins]
+    dst = tree_leaves(out) if out is not None \
+        else [torch.empty_like(x) for x in leaves[0]]
+    for ch in packing.chunk_views(spec, num_chunks):
+        parts = [(i, max(ch.lo, s.offset) - s.offset,
+                  min(ch.hi, s.offset + s.size) - s.offset)
+                 for i, s in enumerate(spec.slots)
+                 if s.offset < ch.hi and ch.lo < s.offset + s.size]
+        slabs = [torch.cat([ls[i].reshape(w, -1)[:, a:b].float()
+                            for i, a, b in parts], dim=1) for ls in leaves]
+        y = fn(*slabs)
+        del slabs
+        col = 0
+        for i, a, b in parts:
+            dst[i].view(w, -1)[:, a:b].copy_(y[:, col:col + b - a])
+            col += b - a
+        del y
+    return out if out is not None else tree_unflatten(spec.treedef, dst)
+
+
 def chunked_update_mix(stacked: Tree, grads: Tree, op: torch.Tensor,
                        theta: torch.Tensor, eta: float,
                        num_chunks: int) -> Tree:
     """Torch chunked fused update + mix: the ``overlap="chunked"`` event
-    body of ``kernel="xla"``.
+    body of ``kernel="xla"`` (a new tree).
 
-    Params and grads pack into (W, sum C) f32 buffers; for each column
-    chunk (`packing.chunk_views`) the gated SGD update
+    For each column chunk of the packed layout (`packing.chunk_views`,
+    gathered one chunk at a time by `_chunkwise`) the gated SGD update
     u_c = x_c - (eta*theta)*g_c and the contraction y_c = T^T u_c run as
     one unit (with ``kernel="pallas"`` the analogous
     `kernels.ops.hier_mix_packed_chunked` launches the kernel per chunk).
 
     Against ``overlap="none"`` this differs in two documented ways, so the
     two agree to float32 tolerance (1e-6), not bit for bit: the mix
-    contracts the PACKED buffer (one product per chunk) instead of one per
-    leaf, and structured strategies run their equal dense (W, W) operator
-    (st.v_op / st.z_op) instead of the grouped mean-then-roll form.  The
-    update replicates the kernel's arithmetic (f32, ``(eta * theta) * g``
-    grouping, one rounding to the leaf dtype on unpack)."""
-    spec = packing.pack_spec(stacked)
-    x = packing.pack(stacked, spec)
-    g = packing.pack(grads, spec)
-    a = (theta.to(x.device, torch.float32) * float(np.float32(eta)))[:, None]
-    t = op.to(x.device, torch.float32)
-    out = torch.empty_like(x)
-    for ch in packing.chunk_views(spec, num_chunks):
-        cols = slice(ch.lo, ch.hi)
-        u = x[:, cols] - a * g[:, cols]
-        out[:, cols] = torch.einsum("ij,ic->jc", t, u)
-    return packing.unpack(out, spec)
+    contracts the PACKED columns (one product per chunk) instead of one
+    per leaf, and structured strategies run their equal dense (W, W)
+    operator (st.v_op / st.z_op) instead of the grouped mean-then-roll
+    form.  The update replicates the kernel's arithmetic (f32,
+    ``(eta * theta) * g`` grouping, one rounding to the leaf dtype)."""
+    dev = tree_leaves(stacked)[0].device
+    a = (theta.to(dev, torch.float32) * float(np.float32(eta)))[:, None]
+    t = op.to(dev, torch.float32)
+    return _chunkwise([stacked, grads], num_chunks,
+                      lambda x, g: torch.einsum("ij,ic->jc", t, x - a * g),
+                      None)
 
 
 def chunked_apply_operator(stacked: Tree, op: torch.Tensor,
-                           num_chunks: int) -> Tree:
+                           num_chunks: int, *, out: Tree | None = None
+                           ) -> Tree:
     """Mix-only chunked path: the dense (W, W) operator contracts the
-    packed buffer one column chunk at a time (no fused update).  Carries
-    `chunked_update_mix`'s reduction-order contract: agrees with
+    packed columns one chunk at a time (no fused update; `_chunkwise`).
+    ``out=stacked`` mixes in place (the production harness: its fleet
+    has no room for a second copy); by default the result is a new tree.
+    Carries `chunked_update_mix`'s reduction-order contract: agrees with
     ``overlap="none"`` to float32 tolerance, not bit for bit."""
-    spec = packing.pack_spec(stacked)
-    x = packing.pack(stacked, spec)
-    t = op.to(x.device, torch.float32)
-    out = torch.empty_like(x)
-    for ch in packing.chunk_views(spec, num_chunks):
-        cols = slice(ch.lo, ch.hi)
-        out[:, cols] = torch.einsum("ij,ic->jc", t, x[:, cols])
-    return packing.unpack(out, spec)
+    t = op.to(tree_leaves(stacked)[0].device, torch.float32)
+    return _chunkwise([stacked], num_chunks,
+                      lambda x: torch.einsum("ij,ic->jc", t, x), out)
 
 
 def _pallas_opt_state(opt_state: Tree, theta: torch.Tensor) -> Tree:

@@ -16,7 +16,8 @@ appears, and `tree_to_numpy` stacks it back.  In a worker-stacked tree
 (every leaf with a leading worker axis W) the super-block axis is the
 second one, ``(W, n_sb, ...)``: pass ``worker_axis=True``.
 `train_state_from_numpy` carries a whole `MLLTrainState` (stacked params,
-``{"inner", "counts"}``, mixing state, step); `sim_carry_from_numpy` /
+``{"inner", "counts"}``, mixing state, step; PowerSGD's factors keep the
+JAX layout, `mix_state_from_numpy`); `sim_carry_from_numpy` /
 `sim_carry_to_numpy` carry a simulator carry (stacked params, opt state,
 mixing state, PRNG key) both ways, the JAX key array becoming the
 `core.prng` key pair.
@@ -129,6 +130,21 @@ def params_to_numpy(params: dict) -> dict:
     return tree_to_numpy(params)
 
 
+def mix_state_from_numpy(mix_state: Any,
+                         device: str | torch.device | None = None) -> Any:
+    """A worker-stacked mixing state of JAX-layout numpy -> the port's.
+    PowerSGD's factor tree ``q`` keeps the JAX layout (one factor per JAX
+    leaf, spanning all its super-blocks); everything else is unstacked as
+    by `tree_from_numpy`."""
+    if isinstance(mix_state, dict) and "q" in mix_state:
+        dev = resolve_device(device)
+        return {"ef": tree_from_numpy(mix_state["ef"], device,
+                                      worker_axis=True),
+                "q": tree_map(lambda a: _to_tensor(np.asarray(a), dev),
+                              mix_state["q"])}
+    return tree_from_numpy(mix_state, device, worker_axis=True)
+
+
 def train_state_from_numpy(state, device: str | torch.device | None = None):
     """Any (params, opt_state, mix_state, step) NamedTuple of JAX-layout
     numpy -- the JAX package's `MLLTrainState` after ``jax.tree.map(
@@ -138,7 +154,7 @@ def train_state_from_numpy(state, device: str | torch.device | None = None):
     def conv(t):
         return tree_from_numpy(t, device, worker_axis=True)
     return MLLTrainState(conv(state.params), conv(state.opt_state),
-                         conv(state.mix_state),
+                         mix_state_from_numpy(state.mix_state, device),
                          torch.tensor(int(np.asarray(state.step)),
                                       dtype=torch.int32))
 
@@ -152,8 +168,8 @@ def sim_carry_from_numpy(carry, device: str | torch.device | None = None):
     def conv(t):
         return tree_from_numpy(t, device, worker_axis=True)
     k = np.asarray(key, np.uint32).reshape(2)
-    return (conv(stacked), conv(opt_state), conv(mix_state),
-            (int(k[0]), int(k[1])))
+    return (conv(stacked), conv(opt_state),
+            mix_state_from_numpy(mix_state, device), (int(k[0]), int(k[1])))
 
 
 def sim_carry_to_numpy(carry) -> tuple:
@@ -184,12 +200,34 @@ def map_with_keys(fn: Callable[[str, int | None, Any], Any], tree: Any
     return map_with_path(visit, tree, is_leaf=_is_blocks)
 
 
+def map_groups(fn: Callable[[str, list, bool], Any], tree: Any) -> Any:
+    """``fn(key, leaves, blocks)`` once per leaf of the JAX layout, in
+    ``jax.tree.leaves`` order, -> the results as a tree in the JAX layout.
+    ``leaves`` is the port's leaf, or under a ``blocks`` list the
+    super-blocks' leaves in order (``blocks`` True: the JAX leaf stacks
+    them on axis 1 of a worker-stacked tree)."""
+    def key(path):
+        return SEP.join(str(p) for p in path)
+
+    def visit(path, x):
+        if _is_blocks(path, x):
+            return map_with_path(lambda p, *bs: fn(key(p), list(bs), True),
+                                 x[0], *x[1:], path=path)
+        return fn(key(path), [x], False)
+    return map_with_path(visit, tree, is_leaf=_is_blocks)
+
+
+def leaf_groups(tree: Any) -> list[tuple[str, list, bool]]:
+    """`map_groups`' arguments as a list, in JAX leaf order."""
+    out: list = []
+    map_groups(lambda *args: out.append(args), tree)
+    return out
+
+
 def _groups(tree: Any) -> dict[str, list]:
     """{key: [(block, leaf), ...]} of a port tree."""
-    groups: dict[str, list] = {}
-    map_with_keys(lambda k, b, x: groups.setdefault(k, []).append((b, x)),
-                  tree)
-    return groups
+    return {k: [(i if blocks else None, x) for i, x in enumerate(leaves)]
+            for k, leaves, blocks in leaf_groups(tree)}
 
 
 def leaf_spec(tree: Any, *, worker_axis: bool = False

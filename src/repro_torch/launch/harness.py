@@ -22,8 +22,11 @@ rates (`measure_worker_rates`), full-protocol checkpoints every
 resumed from its last checkpoint replays the uninterrupted trajectory bit
 for bit) and event-trace export (`timeline.plan_trace`).
 
-Device meshes (``mesh=``) and ``overlap="chunked"`` are not ported yet
-(ROADMAP.md Queue 1) and raise `NotImplementedError`.
+``overlap="chunked"`` mixes each event's dense (W, W) operator over the
+packed columns one chunk at a time (`timeline.chunked_apply_operator`, in
+place), as the JAX package's chunked path does.  Device meshes
+(``mesh=``) are not ported yet (ROADMAP.md Queue 1) and raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -104,21 +107,36 @@ class TrainHarness:
 
     def __init__(self, cfg: ArchConfig, mll: MLLConfig, st: MLLState, *,
                  gate_mode: str, impl: str = "flash", mesh=None,
-                 overlap: str = "none"):
+                 overlap: str = "none", overlap_chunks: int = 4):
         if gate_mode not in ("bernoulli", "forced"):
             raise ValueError(f"unknown gate_mode {gate_mode!r}")
         check_impl(impl)
+        if overlap not in ("none", "chunked"):
+            raise ValueError(f"unknown overlap {overlap!r}; "
+                             "expected none|chunked")
+        if overlap == "chunked":
+            if mesh is not None:
+                raise ValueError(
+                    "overlap='chunked' chunks the packed buffer on ONE "
+                    "device; under a mesh the collective lowerings already "
+                    "overlap by shard -- use overlap='none' with --mesh")
+            if (mll.mixing not in ("dense", "two_stage", "ppermute")
+                    or mll.mix_dtype is not None):
+                raise ValueError(
+                    "overlap='chunked' mixes via a dense (W, W) operator "
+                    "over the packed f32 buffer; it requires mix_dtype="
+                    "None and mixing in ('dense', 'two_stage', 'ppermute')")
+            if overlap_chunks < 1:
+                raise ValueError(f"overlap_chunks must be >= 1, "
+                                 f"got {overlap_chunks}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (SPMD execution) is not ported yet (ROADMAP.md "
                 "Queue 1, 'Multi-device execution'); the port's harness runs "
                 "the fleet on one device")
-        if overlap != "none":
-            raise NotImplementedError(
-                f"overlap={overlap!r} is not ported yet (ROADMAP.md Queue 1, "
-                "'Compression ladder + chunked overlap')")
         self.cfg, self.mll, self.st, self.gate_mode = cfg, mll, st, gate_mode
         self.impl = impl
+        self.overlap, self.overlap_chunks = overlap, overlap_chunks
         self.num_workers = int(st.rates.shape[0])
         self.device = st.v_op.device
 
@@ -128,7 +146,8 @@ class TrainHarness:
     def step(self, state, batch, active, **kw):
         return mll_harness_step(state, batch, active, self.cfg, self.mll,
                                 self.st, gate_mode=self.gate_mode,
-                                impl=self.impl, **kw)
+                                impl=self.impl, overlap=self.overlap,
+                                overlap_chunks=self.overlap_chunks, **kw)
 
     def run_span(self, state: protocol.MLLTrainState,
                  plan: timeline.TimelinePlan, batcher: LMBatcher,
@@ -214,7 +233,7 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
              rate_model: str = "bernoulli",
              last_worker_loss: list | None = None,
              run_config: dict | None = None, impl: str = "flash",
-             mesh=None, overlap: str = "none",
+             mesh=None, overlap: str = "none", overlap_chunks: int = 4,
              log: Callable = print) -> HarnessRun:
     """Drive a `TrainHarness` over the whole plan.
 
@@ -223,7 +242,8 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
     ``stop_slot`` executes only slots [start_slot, stop_slot) of the same
     plan and checkpoints there (the kill point of a resumable run)."""
     harness = TrainHarness(cfg, mll, st, gate_mode=plan.gate_mode, impl=impl,
-                           mesh=mesh, overlap=overlap)
+                           mesh=mesh, overlap=overlap,
+                           overlap_chunks=overlap_chunks)
     device = harness.device
     a = torch.as_tensor(np.asarray(network.a), dtype=torch.float32,
                         device=device)

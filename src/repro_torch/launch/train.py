@@ -21,8 +21,14 @@ run bit for bit.
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
       --impl flash --steps 8 --tau 2 --q 2 --seq-len 512 --batch 4
 
-``--mesh`` and ``--overlap chunked`` are not ported yet (ROADMAP.md
-Queue 1).
+``--mixing`` takes any registered strategy, the compression ladder
+included (``--mixing list`` prints them with their wire formats);
+``--overlap chunked`` mixes each event over the packed columns one chunk
+at a time.  ``--mesh`` is not ported yet (ROADMAP.md Queue 1).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --smoke --device cpu --steps 8 --tau 2 --q 2 --topology ring \\
+      --mixing int8_ef --seq-len 32 --batch 2 --eval-every 4
 """
 from __future__ import annotations
 
@@ -69,7 +75,9 @@ class TrainLoopConfig:
     trace_path: str | None = None    # export the event trace (JSON)
     impl: str = "flash"              # flash (hand-written kernels) | plain
     mesh: tuple[int, int] | None = None   # not ported (ROADMAP Queue 1)
-    overlap: str = "none"            # "chunked" not ported (ROADMAP Queue 1)
+    overlap: str = "none"            # "chunked": mix the packed buffer
+                                     # chunk by chunk (rtol-equivalent)
+    overlap_chunks: int = 4          # column chunks per mixing event
     device: str | None = None        # None = cuda; "cpu" runs the plain
                                      # versions of the kernels
 
@@ -159,6 +167,7 @@ def run_training(cfg: ArchConfig, mll: MLLConfig, loop: TrainLoopConfig,
     current = dict(plan_config(mll, network, plan, loop.policy,
                                loop.rate_model),
                    arch=cfg.name, impl=loop.impl, overlap=loop.overlap,
+                   overlap_chunks=loop.overlap_chunks,
                    eval_every=loop.eval_every, seq_len=loop.seq_len,
                    batch_per_worker=loop.batch_per_worker,
                    tokens_per_worker=loop.tokens_per_worker,
@@ -167,6 +176,10 @@ def run_training(cfg: ArchConfig, mll: MLLConfig, loop: TrainLoopConfig,
         train_state, start_slot, extra = checkpoint.restore_state(
             loop.checkpoint_dir, train_state)
         saved = extra.get("plan_config")
+        if saved is not None and "overlap_chunks" not in saved:
+            # checkpoints written before the chunked overlap ran the
+            # unchunked event path
+            saved = dict(saved, overlap="none", overlap_chunks=4)
         if saved is not None and saved != current:
             diff = {k: (saved.get(k), current[k]) for k in current
                     if saved.get(k) != current[k]}
@@ -187,7 +200,8 @@ def run_training(cfg: ArchConfig, mll: MLLConfig, loop: TrainLoopConfig,
                    calibration=calibration, trace_path=loop.trace_path,
                    policy=loop.policy, rate_model=loop.rate_model,
                    last_worker_loss=last_worker_loss, run_config=current,
-                   impl=loop.impl, overlap=loop.overlap, log=log)
+                   impl=loop.impl, overlap=loop.overlap,
+                   overlap_chunks=loop.overlap_chunks, log=log)
     return {"history": run.history, "avg_params": run.avg_params,
             "network": run.network, "plan": run.plan,
             "train_state": run.train_state, "calibration": run.calibration,
@@ -206,8 +220,8 @@ def main(argv=None):
     ap.add_argument("--eta", type=float, default=0.05)
     ap.add_argument("--topology", default="complete")
     ap.add_argument("--mixing", default="dense", metavar="NAME",
-                    help="registered mixing strategy: "
-                         f"{', '.join(protocol.available_mixing())}")
+                    help="registered mixing strategy; 'list' prints the "
+                         "registry with wire-format descriptions and exits")
     ap.add_argument("--inner-opt", default="sgd",
                     choices=tuple(sorted(optim_mod.OPTIMIZERS)))
     ap.add_argument("--subnets", type=int, default=2)
@@ -229,6 +243,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain versions of the "
                          "kernels)")
+    ap.add_argument("--overlap", default="none", choices=("none", "chunked"),
+                    help="'chunked' mixes the packed buffer chunk by chunk "
+                         "(requires a dense-operator mixing; rtol-equivalent "
+                         "reduction-order change)")
+    ap.add_argument("--overlap-chunks", type=int, default=4,
+                    help="column chunks per mixing event under --overlap "
+                         "chunked")
     ap.add_argument("--eval-every", type=int, default=16)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true",
@@ -240,10 +261,13 @@ def main(argv=None):
     ap.add_argument("--trace", default=None,
                     help="export the event trace (simulator schema) here")
     args = ap.parse_args(argv)
-    try:
-        protocol.check_mixing(args.mixing)
-    except (ValueError, NotImplementedError) as e:
-        ap.error(str(e))
+    if args.mixing == "list":
+        print(protocol.describe_mixing())
+        return
+    if args.mixing not in protocol.available_mixing():
+        ap.error(f"unknown mixing {args.mixing!r}; registered: "
+                 f"{', '.join(protocol.available_mixing())} (or 'list' to "
+                 "describe)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     rates = tuple(args.rates) if args.rates else 1.0
@@ -259,6 +283,8 @@ def main(argv=None):
                            policy=args.policy, rate_model=args.rate_model,
                            resume=args.resume, stop_slot=args.stop_slot,
                            trace_path=args.trace, impl=args.impl,
+                           overlap=args.overlap,
+                           overlap_chunks=args.overlap_chunks,
                            device=args.device)
     out = run_training(cfg, mll, loop, num_subnets=args.subnets,
                        workers_per_subnet=args.workers_per_subnet)

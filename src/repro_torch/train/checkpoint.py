@@ -14,6 +14,12 @@ so a checkpoint written by either package restores in the other.
 * Saves are crash-consistent: the leaves go to a step-suffixed file first
   and the manifest naming it is replaced atomically last.
 
+* A mixing strategy's state rides in the `MLLTrainState` like the rest:
+  error-feedback residuals in the params' layout (``.mix_state::...``),
+  PowerSGD's ``{"ef", "q"}`` with the factors already in the JAX layout
+  (one per JAX leaf; a vector leaf's (W, 0) placeholder is a zero-size
+  array in the npz).
+
 ``save``/``restore`` hold any tree (the averaged u_k at the directory's
 root); ``save_state``/``restore_state`` the full protocol checkpoint -- an
 entire `MLLTrainState` plus the timeline cursor and the data cursor -- under

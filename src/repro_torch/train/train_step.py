@@ -29,7 +29,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import protocol
 from repro_torch.core.mllsgd import MLLConfig, MLLState
 from repro_torch.core.protocol import MLLTrainState
-from repro_torch.core.timeline import apply_event_operator
+from repro_torch.core.timeline import (apply_event_operator,
+                                       chunked_apply_operator)
 from repro_torch.models import model as model_mod
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -105,7 +106,8 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
                      phase: int = protocol.PHASE_LOCAL,
                      op: torch.Tensor | None = None,
                      compute_grads: bool = True, impl: str = "flash",
-                     microbatch: int = 1) -> tuple[MLLTrainState, dict]:
+                     microbatch: int = 1, overlap: str = "none",
+                     overlap_chunks: int = 4) -> tuple[MLLTrainState, dict]:
     """One PLAN-DRIVEN slot: the protocol tick with the gate and the mixing
     event decided host-side by a `core.timeline` readiness policy.
 
@@ -118,11 +120,22 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
       * ``compute_grads=False`` is the all-idle event slot of a forced plan:
         the backward pass and the θ = 0 no-op update are skipped; only the
         per-worker losses (the metrics) and the mixing event run.
+      * ``overlap="chunked"`` replaces the mixing contraction (only: the
+        inner update stays per leaf) with `timeline.chunked_apply_operator`
+        in place: the dense (W, W) operator (``op``, or st.v_op / st.z_op
+        for a subnet / hub phase) over the packed columns one chunk at a
+        time.  Packed per-chunk products and the dense form of the
+        structured strategies are the JAX package's documented
+        reduction-order change: equal to ``overlap="none"`` to float32
+        tolerance, not bit for bit.
 
     The params and optimizer state of ``train_state`` are updated in place
     (`core.protocol`); the returned state holds the same tensors."""
     if gate_mode not in ("bernoulli", "forced"):
         raise ValueError(f"unknown gate_mode {gate_mode!r}")
+    if overlap not in ("none", "chunked"):
+        raise ValueError(f"unknown overlap {overlap!r}; "
+                         "expected none|chunked")
     step = int(train_state.step) + 1
     params, opt_state = train_state.params, train_state.opt_state
     if compute_grads:
@@ -138,8 +151,15 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
     else:
         metrics = per_worker_losses(params, batch, cfg, impl=impl)
     mix_state = train_state.mix_state
+    chunked = overlap == "chunked"
     if op is not None:
-        params = apply_event_operator(params, op)
+        params = (chunked_apply_operator(params, op, overlap_chunks,
+                                         out=params) if chunked
+                  else apply_event_operator(params, op))
+    elif chunked and phase != protocol.PHASE_LOCAL:
+        op_mat = st.v_op if phase == protocol.PHASE_SUBNET else st.z_op
+        params = chunked_apply_operator(params, op_mat, overlap_chunks,
+                                        out=params)
     elif phase == protocol.PHASE_SUBNET:
         params, mix_state = protocol.resolve_mixing(mll).subnet_with_state(
             params, st, mix_state)

@@ -620,3 +620,66 @@ def test_cuda_slstm_train_runs_k7_then_k8(cuda_device):
         out[impl] = [y.detach(), *grads]
     for a, w in zip(out["flash"], out["plain"]):
         _scaled_close(a, w, 1e-4)
+
+
+LADDER = ("int8", "int8_ef", "int4_ef", "bf16", "topk_ef", "powersgd")
+
+
+def _ladder_tree(w, device):
+    """A matrix leaf, an all-ones norm leaf (the top-k tie case) and a
+    two-super-block group, as CPU and card copies of the same values."""
+    g = torch.Generator().manual_seed(4)
+    tree = {"w": torch.randn(w, 64, 48, generator=g),
+            "norm": torch.ones(w, 96),
+            "blocks": [{"k": torch.randn(w, 32, 8, generator=g),
+                        "scale": torch.ones(w, 96)} for _ in range(2)]}
+    from repro_torch.tree import tree_map
+    return tree, tree_map(lambda x: x.to(device), tree)
+
+
+@pytest.mark.cuda
+def test_cuda_topk_keeps_the_lowest_index_among_ties(cuda_device):
+    """`protocol._topk_sparsify` on the card keeps what it keeps on the
+    CPU (jax.lax.top_k's rule, tests/test_torch_compression.py): ties go
+    to the lowest index, whatever order `torch.topk` returns them in."""
+    from repro_torch.core import protocol
+
+    g = torch.Generator().manual_seed(0)
+    rows = torch.stack([torch.ones(100_000),
+                        torch.randint(-3, 4, (100_000,), generator=g).float(),
+                        torch.randn(100_000, generator=g)])
+    for k in (1, 7, 3125, 50_000):
+        want = protocol._topk_sparsify(rows, k)
+        got = protocol._topk_sparsify(rows.to(cuda_device), k).cpu()
+        assert torch.equal(got, want), k
+        assert torch.equal(got[0, :k], torch.ones(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LADDER)
+def test_cuda_hub_round_matches_cpu(cuda_device, name):
+    """One hub round of each compression rung, W = 3 x 2 on a ring, on the
+    card against the CPU at `tolerance.LADDER_TOL`."""
+    from repro_torch.core import mllsgd, protocol
+    from repro_torch.interop import flatten
+    from repro_torch.kernels.tolerance import align_columns, ladder_error
+
+    cfg = mllsgd.MLLConfig(hub_topology="ring", mixing=name)
+    net = mllsgd.build_network(cfg, 3, 2)
+    out = {}
+    for dev, tree in zip(("cpu", cuda_device), _ladder_tree(6, cuda_device)):
+        st = mllsgd.build_state(cfg, net, device=dev)
+        strat = protocol.get_mixing(name)
+        params, state = strat.hub_with_state(tree, st,
+                                             strat.init_state(tree))
+        out[str(dev)[:4]] = (flatten(params, worker_axis=True),
+                             flatten(state, worker_axis=True))
+    (pc, sc), (pg, sg) = out["cpu"], out["cuda"]
+    scale = max(float(np.abs(v).max()) for v in pc.values())
+    for k in pc:
+        ladder_error(name, torch.from_numpy(pg[k]), torch.from_numpy(pc[k]))
+    for k in sc:
+        got, want = torch.from_numpy(sg[k]), torch.from_numpy(sc[k])
+        if k.startswith("q::"):
+            got = align_columns(got, want)
+        ladder_error(name, got, want, scale=scale)

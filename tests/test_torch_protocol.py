@@ -149,13 +149,15 @@ def test_gated_off_workers_are_frozen_exactly():
 
 
 def test_mixing_registry_and_guards():
-    assert tp.available_mixing() == ("dense", "ppermute", "two_stage")
-    for name in tp.UNPORTED_MIXING:
-        assert name in jp.MIXING_REGISTRY
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            tmll.MLLConfig(mixing=name)
+    # every strategy of the JAX package's registry is registered here
+    assert tp.available_mixing() == jp.available_mixing()
+    assert len(tp.available_mixing()) == 9
+    for name in tp.available_mixing():
+        assert tmll.MLLConfig(mixing=name).mixing_strategy().name == name
     with pytest.raises(ValueError, match="unknown mixing"):
         tp.get_mixing("nope")
+    with pytest.raises(ValueError, match="unknown mixing"):
+        tmll.MLLConfig(mixing="nope")
     # grouped strategies need equal subnets; dense takes unequal ones
     from repro_torch.core.hierarchy import MultiLevelNetwork
     net = MultiLevelNetwork.build("ring", (1, 2, 3))

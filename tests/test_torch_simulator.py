@@ -299,8 +299,21 @@ def test_outer_train_step_matches_reference_through_every_phase():
                                        np.asarray(jo["momentum"][k]),
                                        atol=1e-5)
     assert sum(float(m.abs().sum()) for m in tree_leaves(to["momentum"])) > 0
-    with pytest.raises(NotImplementedError, match="not ported"):
-        touter.outer_hub_step(tx, to, dataclasses.replace(tcfg, mixing="int8"),
+    # a compressed rung through the outer hub step, as in the JAX package
+    # (int8 is stateless); a stateful rung without its state raises
+    ocfg8 = dict(lr=0.7, beta=0.9)
+    jx, jo = jouter.outer_hub_step(jx, jo,
+                                   dataclasses.replace(jcfg, mixing="int8"),
+                                   jst, jouter.OuterConfig(**ocfg8))
+    tx, to = touter.outer_hub_step(tx, to,
+                                   dataclasses.replace(tcfg, mixing="int8"),
+                                   tst, touter.OuterConfig(**ocfg8))
+    for k in stacked:
+        np.testing.assert_allclose(tx[k].numpy(), np.asarray(jx[k]),
+                                   atol=1e-5, err_msg=f"int8 {k}")
+    with pytest.raises(ValueError, match="stateful"):
+        touter.outer_hub_step(tx, to,
+                              dataclasses.replace(tcfg, mixing="int8_ef"),
                               tst, touter.OuterConfig())
 
 

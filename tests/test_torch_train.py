@@ -299,8 +299,18 @@ def test_cli_main_runs(tmp_path, capsys):
     assert "final u_k loss" in out and "device=cpu" in out
     assert jtl.load_trace(str(tmp_path / "t.json"))["meta"]["policy"] == \
         "gossip"
+    # the compression ladder trains through the CLI; 'list' describes it
+    ttrain.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                 "--steps", "4", "--tau", "2", "--q", "2", "--topology",
+                 "ring", "--mixing", "int8_ef", "--seq-len", "16",
+                 "--batch", "2", "--eval-every", "4"])
+    out = capsys.readouterr().out
+    loss = float(out.split("final u_k loss: ")[1].split()[0])
+    assert np.isfinite(loss)
+    ttrain.main(["--mixing", "list"])
+    assert capsys.readouterr().out.strip() == jp.describe_mixing()
     with pytest.raises(SystemExit):
-        ttrain.main(["--mixing", "int8_ef", "--device", "cpu"])
+        ttrain.main(["--mixing", "nope", "--device", "cpu"])
 
 
 def test_cli_main_trains_xlstm(tmp_path, capsys):
@@ -343,8 +353,13 @@ def test_harness_guards():
     with pytest.raises(NotImplementedError, match="Multi-device"):
         tharness.TrainHarness(TCFG, tmll.MLLConfig(), st,
                               gate_mode="bernoulli", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    # the chunked overlap's guards raise where the JAX package's raise
+    with pytest.raises(ValueError, match="ONE device"):
         tharness.TrainHarness(TCFG, tmll.MLLConfig(), st,
+                              gate_mode="bernoulli", mesh=object(),
+                              overlap="chunked")
+    with pytest.raises(ValueError, match="dense"):
+        tharness.TrainHarness(TCFG, tmll.MLLConfig(mixing="int8_ef"), st,
                               gate_mode="bernoulli", overlap="chunked")
     with pytest.raises(ValueError, match="unknown impl"):
         tharness.TrainHarness(TCFG, tmll.MLLConfig(), st,
