@@ -109,7 +109,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 16. sim-paper -- the paper's logistic regression at W = 100 in 10
    sub-networks through `simulate` (K1b) and `run_timeline` with two_stage
    mixing (K2 at D = 10), kernel="pallas" against kernel="xla".
-17. report -- K3 at the serve, training and sim shapes, K6 at the serve
+16b. generate -- `serve_step.generate` on qwen3-1.7b at full width (28
+   layers, bf16, seeded random weights): 4 prompts of 512 tokens, 64 new,
+   a rotating dense cache of max_len 8,192 (3.5 GiB), greedy with the
+   batched prefill and sampled (temperature 0.8); prefill ms, ms per
+   decode step, tokens/s, peak memory, a profiled decode step.  Its dense
+   logits against `ServeEngine`'s K3 + K6 path at phase 5's limits; in
+   float32 at full width, batched = loop prefill (greedy tokens) and the
+   dense logits against a teacher-forced `forward_train`.
+16c. generate-xlstm -- xlstm-125m at full width, 4 prompts of 128 tokens,
+   32 new (the per-token loop prefill); float32 decode against
+   `forward_train` over 128 positions.
+16d. generate-jamba -- jamba-v0.1-52b at full width cut to 8 layers (7
+   mamba, 1 attention, 4 MoE of 16 experts; 13.3 B params, 26.6 GB in
+   bf16): 2 prompts of 64 tokens, 16 new, ms per step beside the floor
+   of reading every weight; decode against `forward_train` in bf16 (mean
+   and argmax) and in float32 at full width (53 GB); the state changed.
+16e. chunked -- one qwen3-1.7b attention (B 1, T 8,192, 16 / 8 heads of
+   128, bf16): `_sdpa_chunked`, the plain `_sdpa`, K3 and SDPA agree and
+   are timed; K3's measurement joins the report as a new shape.
+   The generation paths launch no kernel (their attention is the plain
+   path, as the JAX package's); each phase asserts it.
+17. report -- K3 at the serve, training, sim and T = 8,192 shapes, K6 at the serve
    path's busiest decode tick and at one 4,096-token lane (with the splits
    chosen), K4 at the training shape; one ``{"kernels": [...]}`` JSON line,
    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -121,6 +142,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -139,7 +161,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E402
-from repro_torch.core import baselines, packing, protocol  # noqa: E402
+from repro_torch.core import baselines, packing, prng, protocol  # noqa: E402
 from repro_torch.core import timeline as ttl  # noqa: E402
 from repro_torch.core.hierarchy import MultiLevelNetwork  # noqa: E402
 from repro_torch.core.mllsgd import MLLConfig, build_state  # noqa: E402
@@ -157,10 +179,12 @@ from repro_torch.kernels.tolerance import (BWD_TOL, LSE_TOL, TOL,  # noqa: E402
                                            align_columns, ladder_error)
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
+from repro_torch.serve import serve_step  # noqa: E402
 from repro_torch.serve.engine import (PROMPT_PAD, EngineConfig,  # noqa: E402
                                       ServeEngine, poisson_arrivals)
 from repro_torch.train import checkpoint  # noqa: E402
@@ -2233,6 +2257,429 @@ def phase_train_overlap(cfg, device: torch.device, smi: str) -> dict:
     return row
 
 
+# ------------------------------------------------------ offline generation
+# float32 decode against a float32 forward of the same model: the two round
+# in other orders through 12-28 layers (~1e-4 of the logits at most); a
+# wrong cache slot, mask, position or recurrence moves them by ~100%
+F32_MAX_REL, F32_MEAN_REL = 1e-2, 1e-3
+
+
+def _free(phase: str, device: torch.device) -> None:
+    """Drop what earlier phases left behind, then log what is still held."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    log(phase, f"memory allocated on entry "
+        f"{torch.cuda.memory_allocated(device) / 2**30} GiB, reserved "
+        f"{torch.cuda.memory_reserved(device) / 2**30} GiB")
+
+
+def _no_launches(phase: str) -> dict:
+    """The launch counters since the last reset: the generation paths run
+    no hand-written kernel (the JAX package's `generate` runs plain XLA)."""
+    got = ops.launch_counts()
+    log(phase, f"kernel launches on the path (none expected): {got}")
+    if any(got.values()):
+        raise AssertionError(f"{phase}: the plain path launched {got}")
+    return got
+
+
+def _relative_check(phase: str, what: str, got: torch.Tensor,
+                    want: torch.Tensor, max_rel: float | None,
+                    mean_rel: float) -> dict:
+    """max / mean |got - want| against max_rel / mean_rel times the max /
+    mean |want| (max_rel None: the max is reported, not held); raises
+    beyond them or on a non-finite value."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row = dict(max_abs=diff.max().item(), mean_abs=diff.mean().item(),
+               max_ref=want.abs().max().item(),
+               mean_ref=want.abs().mean().item(), max_rel=max_rel,
+               mean_rel=mean_rel)
+    log(phase, f"{what}: {json.dumps(row)}")
+    if (not torch.isfinite(got).all()
+            or (max_rel is not None
+                and row["max_abs"] > max_rel * row["max_ref"])
+            or row["mean_abs"] > mean_rel * row["mean_ref"]):
+        raise AssertionError(f"{phase}: {what} beyond its tolerance")
+    return row
+
+
+@torch.inference_mode()
+def dense_logits(params, cfg, seq: torch.Tensor, plen: int,
+                 max_len: int) -> torch.Tensor:
+    """`generate`'s dense path teacher-forced over ``seq`` (B, L): the
+    batched prefill of ``seq[:, :plen]``, then decode steps fed its tokens.
+    -> float32 logits at positions plen-1 .. L-2 (B, L - plen, V)."""
+    state, _ = serve_step._batched_prefill(params, seq[:, :plen], cfg,
+                                           max_len, prng.prng_key(0))
+    out = []
+    for t in range(plen - 1, seq.shape[1] - 1):
+        lg, state = model_mod.decode_step(params, state,
+                                          {"tokens": seq[:, t:t + 1]}, t, cfg)
+        out.append(lg[:, 0].float())
+    return torch.stack(out, dim=1)
+
+
+@torch.inference_mode()
+def loop_logits(params, cfg, seq: torch.Tensor, max_len: int, state=None
+                ) -> tuple[torch.Tensor, list]:
+    """Every position of ``seq`` (B, L) through `decode_step` from a fresh
+    (or the given) state -> (float32 logits (B, L, V), final state)."""
+    if state is None:
+        state = model_mod.init_decode_state(cfg, seq.shape[0], max_len,
+                                            seq.device)
+    out = []
+    for t in range(seq.shape[1]):
+        lg, state = model_mod.decode_step(params, state,
+                                          {"tokens": seq[:, t:t + 1]}, t, cfg)
+        out.append(lg[:, 0].float())
+    return torch.stack(out, dim=1), state
+
+
+@torch.inference_mode()
+def profile_dense_decode(params, cfg, prompt: torch.Tensor, max_len: int,
+                         phase: str, smi: str, n: int = 5) -> dict:
+    """Where a dense decode step's time goes: the batched prefill of
+    ``prompt``, two warm steps, ``n`` steps on the host clock, then ``n``
+    more under `torch.profiler`: device busy time, operations, host syncs
+    and the top device operations per step."""
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = serve_step._batched_prefill(params, prompt, cfg, max_len,
+                                           prng.prng_key(0))
+    tok, cur = prompt[:, -1:], prompt.shape[1] - 1
+
+    def steps(k):
+        nonlocal tok, state, cur
+        for _ in range(k):
+            nxt, state = serve_step.serve_step(params, state,
+                                               {"tokens": tok}, cur, cfg)
+            tok, cur = nxt[:, None], cur + 1
+    steps(2)
+    _, wall = _timed(lambda: steps(n))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(n)
+        torch.cuda.synchronize()
+    device_us: dict[str, float] = {}
+    syncs = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us[e.name] = (device_us.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us())
+        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += 1
+    n_ops = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(device_us.values()) / 1e3 / n
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    row = dict(wall_ms_per_step=wall / n, device_busy_ms_per_step=busy,
+               busy_share=busy / (wall / n),
+               device_ops_per_step=n_ops / n, host_syncs_per_step=syncs / n,
+               top_device_ms_per_step={k[:70]: us / 1e3 / n
+                                       for k, us in top})
+    log(phase, f"dense decode step at {prompt.shape[1]} tokens of "
+        f"{max_len} slots: {json.dumps(row)} on {smi}")
+    return row
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _check_tokens(phase: str, out: torch.Tensor, prompt: torch.Tensor,
+                  n_new: int, vocab: int) -> None:
+    if (tuple(out.shape) != (prompt.shape[0], prompt.shape[1] + n_new)
+            or not torch.equal(out[:, :prompt.shape[1]], prompt)
+            or int(out.min()) < 0 or int(out.max()) >= vocab):
+        raise AssertionError(f"{phase}: wrong shape, prefix or token range")
+
+
+def phase_generate(device: torch.device, smi: str) -> dict:
+    """qwen3-1.7b at full width (28 layers, bf16, seeded random weights):
+    `serve_step.generate` on 4 prompts of 512 tokens, 64 new tokens, a
+    rotating dense cache of max_len 8,192 (28 x 2 x 4 x 8,192 x 8 x 128
+    bf16 = 3.5 GiB, every slot read by every decode step under the
+    position mask), greedy with the batched prefill, then sampled
+    (temperature 0.8, seed 3).  Check 3 (bf16): its dense logits against
+    `ServeEngine`'s path (K3 prefill, K6 decode) at the serve contract.
+    Checks 1 and 2 (float32, full width, 6.9 GB of params): batched and
+    loop prefill give the same greedy tokens, and the dense logits equal a
+    teacher-forced `forward_train`."""
+    _free("generate", device)
+    cfg = get_config("qwen3-1.7b")
+    params = model_mod.init_model(torch.Generator(device).manual_seed(7),
+                                  cfg, device=device)
+    b, plen, max_new, max_len = 4, 512, 64, 8192
+    rng = np.random.default_rng(7)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, plen))
+                              ).to(device)
+    serve_step.generate(params, prompt[:1, :8], cfg, max_new=2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    _, prefill_ms = _timed(lambda: serve_step._batched_prefill(
+        params, prompt, cfg, max_len, prng.prng_key(0)))
+    runs = {}
+    for name, kw in (("greedy", {}), ("sampled", dict(temperature=0.8,
+                                                      seed=3))):
+        out, ms = _timed(lambda: serve_step.generate(
+            params, prompt, cfg, max_new=max_new, max_len=max_len,
+            prefill="batched", **kw))
+        _check_tokens("generate", out, prompt, max_new, cfg.vocab_size)
+        runs[name] = dict(tokens=out, wall_ms=ms,
+                          decode_ms_per_step=(ms - prefill_ms) / max_new,
+                          tokens_per_s=b * max_new / (ms / 1e3))
+    launches = _no_launches("generate")
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    row = {name: {k: v for k, v in r.items() if k != "tokens"}
+           for name, r in runs.items()}
+    row.update(prefill_ms=prefill_ms, peak_gib=peak, batch=b, prompt=plen,
+               max_new=max_new, max_len=max_len,
+               cache_gib=cfg.num_layers * 2 * b * max_len * cfg.n_kv_heads
+               * cfg.resolved_head_dim * 2 / 2**30)
+    log("generate", f"{cfg.name}: {json.dumps(row)} on {smi}")
+    greedy = runs["greedy"]["tokens"]
+    if torch.equal(greedy, runs["sampled"]["tokens"]):
+        raise AssertionError("generate: sampling gave the greedy tokens")
+
+    # check 3: generate's dense logits (bit for bit its own: their argmax is
+    # the greedy output) against the paged path through K3 and K6
+    dense = dense_logits(params, cfg, greedy, plen, max_len)
+    if not torch.equal(dense.argmax(-1), greedy[:, plen:]):
+        raise AssertionError("generate: the greedy tokens are not the "
+                             "argmax of the dense path's logits")
+    paged = teacher_forced_logits(
+        params, cfg, [p for p in prompt.cpu().numpy()],
+        greedy[:, plen:].tolist(), "flash", device)
+    row["check3_dense_vs_paged_flash"] = _relative_check(
+        "generate", "check 3, bf16: dense logits vs ServeEngine's K3 + K6 "
+        "path", paged, dense, MAX_REL, MEAN_REL)
+    agree = (paged.argmax(-1) == dense.argmax(-1)).float().mean().item()
+    log("generate", f"check 3: argmax agreement {agree} (floor "
+        f"{MIN_ARGMAX_AGREEMENT})")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError("generate: argmax agreement below the floor")
+    row["profile"] = profile_dense_decode(params, cfg, prompt, max_len,
+                                          "generate", smi)
+    del params, dense, paged, runs, greedy
+    _free("generate", device)
+
+    # checks 1 and 2, float32 at full width
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    params = model_mod.init_model(torch.Generator(device).manual_seed(8),
+                                  f32, device=device)
+    p1 = prompt[:1, :64]
+    out = {pf: serve_step.generate(params, p1, f32, max_new=16, prefill=pf)
+           for pf in ("batched", "loop")}
+    new = {pf: o[0, 64:].tolist() for pf, o in out.items()}
+    log("generate", f"check 1, float32: batched {new['batched']} loop "
+        f"{new['loop']}")
+    if not torch.equal(out["batched"], out["loop"]):
+        raise AssertionError("generate: batched and loop prefill disagree")
+    seq = out["batched"]
+    dense = dense_logits(params, f32, seq, 64, 80)
+    with torch.inference_mode():
+        train, _ = model_mod.forward_train(params, {"tokens": seq}, f32,
+                                           impl="plain")
+    row["check2_dense_vs_forward_train_f32"] = _relative_check(
+        "generate", "check 2, float32: dense decode logits vs teacher-forced "
+        "forward_train", dense, train[:, 63:-1], F32_MAX_REL, F32_MEAN_REL)
+    if not torch.equal(train[:, 63:-1].argmax(-1), seq[:, 64:]):
+        raise AssertionError("generate: forward_train's argmax is not the "
+                             "generated text")
+    row["launches"] = launches
+    del params, dense, train, out
+    return row
+
+
+def phase_generate_xlstm(device: torch.device, smi: str) -> dict:
+    """xlstm-125m at full width (6 x (mLSTM, sLSTM), bf16 with float32 gate
+    leaves): `generate` with prefill="auto" (the loop, for a recurrent
+    pattern) on 4 prompts of 128 tokens, 32 new.  Check (float32): the
+    per-token `decode_step` logits over 128 positions equal
+    `forward_train`'s (the JAX package's test_decode_matches_train_forward
+    at full width)."""
+    _free("generate-xlstm", device)
+    cfg = get_config("xlstm-125m")
+    params = model_mod.init_model(torch.Generator(device).manual_seed(9),
+                                  cfg, device=device)
+    b, plen, max_new = 4, 128, 32
+    prompt = torch.from_numpy(np.random.default_rng(9).integers(
+        1, cfg.vocab_size, (b, plen))).to(device)
+    serve_step.generate(params, prompt[:1, :4], cfg, max_new=2)   # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    out, ms = _timed(lambda: serve_step.generate(params, prompt, cfg,
+                                                 max_new=max_new))
+    _check_tokens("generate-xlstm", out, prompt, max_new, cfg.vocab_size)
+    launches = _no_launches("generate-xlstm")
+    steps = plen - 1 + max_new
+    row = dict(wall_ms=ms, steps=steps, ms_per_step=ms / steps,
+               tokens_per_s=b * max_new / (ms / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               launches=launches)
+    log("generate-xlstm", f"{cfg.name}: {json.dumps(row)} on {smi}")
+    del params
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    params = model_mod.init_model(torch.Generator(device).manual_seed(10),
+                                  f32, device=device)
+    seq = out[:2, :plen]
+    dec, _ = loop_logits(params, f32, seq, plen)
+    with torch.inference_mode():
+        train, _ = model_mod.forward_train(params, {"tokens": seq}, f32,
+                                           impl="plain")
+    row["check_decode_vs_forward_train_f32"] = _relative_check(
+        "generate-xlstm", "float32 decode_step vs forward_train, 128 "
+        "positions", dec, train, F32_MAX_REL, F32_MEAN_REL)
+    del params, dec, train
+    return row
+
+
+def phase_generate_jamba(device: torch.device, smi: str) -> dict:
+    """jamba-v0.1-52b at full width cut from 32 to 8 layers: one
+    super-block of 7 mamba layers and 1 attention layer, 4 MoE layers of
+    16 experts top-2 (d_ff 14,336), ~13.3 B params in bf16.  `generate`
+    with the loop prefill on 2 prompts of 64 tokens, 16 new.  Checks
+    (capacity factor 8, so the forward drops no token): the
+    teacher-forced `decode_step` logits against `forward_train`, in bf16
+    at the serve contract's mean and argmax floor, and in float32 at full
+    width (53 GB) at float32's limits; the decode state changed and every
+    output is finite."""
+    _free("generate-jamba", device)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
+    t0 = time.perf_counter()
+    params = model_mod.init_model(torch.Generator(device).manual_seed(11),
+                                  cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = model_mod.count_params(params)
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    log("generate-jamba", f"{cfg.name} cut to {cfg.num_layers} layers "
+        f"(pattern {cfg.pattern}, MoE at {cfg.moe_positions}): {n_params} "
+        f"params, {weight_bytes / 1e9} GB, initialised in "
+        f"{time.perf_counter() - t0} s")
+    b, plen, max_new = 2, 64, 16
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        1, cfg.vocab_size, (b, plen))).to(device)
+    serve_step.generate(params, prompt[:, :2], cfg, max_new=1)   # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    out, ms = _timed(lambda: serve_step.generate(
+        params, prompt, cfg, max_new=max_new, prefill="loop"))
+    _check_tokens("generate-jamba", out, prompt, max_new, cfg.vocab_size)
+    launches = _no_launches("generate-jamba")
+    steps = plen - 1 + max_new
+    row = dict(wall_ms=ms, steps=steps, ms_per_step=ms / steps,
+               floor_ms_per_step=weight_bytes / PEAK_BYTES * 1e3,
+               tokens_per_s=b * max_new / (ms / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               params=n_params, weight_gb=weight_bytes / 1e9,
+               launches=launches)
+    log("generate-jamba", f"{json.dumps(row)} (the floor: every expert's "
+        f"capacity buffer runs, so a step reads all the weights at "
+        f"{PEAK_BYTES / 1e12} TB/s) on {smi}")
+    wide = dataclasses.replace(cfg, capacity_factor=8.0)
+    state = model_mod.init_decode_state(wide, b, out.shape[1], device)
+    fresh = tree_map(torch.clone, state)
+    dec, state = loop_logits(params, wide, out, out.shape[1], state)
+    with torch.inference_mode():
+        train, _ = model_mod.forward_train(params, {"tokens": out}, wide,
+                                           impl="plain")
+    # bf16: a token whose router scores differ by bf16 rounding between
+    # the two paths can take another expert, and its logits then move by
+    # tens of percent (the JAX package shows the same: 12% of the scale at
+    # jamba's smoke config cut to 8 layers, 1.4% without MoE): the mean
+    # and the argmax agreement are held, the max is reported
+    row["check_decode_vs_forward_train_bf16"] = _relative_check(
+        "generate-jamba", "bf16 decode_step vs forward_train (capacity "
+        "factor 8), 80 positions", dec, train, None, MEAN_REL)
+    agree = (dec.argmax(-1) == train.argmax(-1)).float().mean().item()
+    row["check_decode_vs_forward_train_bf16"]["argmax_agreement"] = agree
+    leaves = tree_leaves(state)
+    unchanged = [i for i, (a, z) in enumerate(zip(tree_leaves(fresh), leaves))
+                 if torch.equal(a, z)]
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in leaves)
+    log("generate-jamba", f"decode state: {len(leaves)} leaves, unchanged "
+        f"{unchanged}, all finite {finite}; bf16 argmax agreement {agree} "
+        f"(floor {MIN_ARGMAX_AGREEMENT})")
+    if (unchanged or not finite or not torch.isfinite(dec).all()
+            or agree < MIN_ARGMAX_AGREEMENT):
+        raise AssertionError("generate-jamba: a state leaf did not change, "
+                             "an output is not finite or the argmax "
+                             "agreement is below the floor")
+    del params, state, fresh, dec, train
+    # float32 at full width (53 GB of weights, with the bf16 model freed):
+    # no routing flips, so the whole serve check holds at float32's limits
+    _free("generate-jamba", device)
+    f32 = dataclasses.replace(wide, param_dtype="float32",
+                              compute_dtype="float32")
+    params = model_mod.init_model(torch.Generator(device).manual_seed(12),
+                                  f32, device=device)
+    dec, _ = loop_logits(params, f32, out, out.shape[1])
+    with torch.inference_mode():
+        train, _ = model_mod.forward_train(params, {"tokens": out}, f32,
+                                           impl="plain")
+    row["check_decode_vs_forward_train_f32"] = _relative_check(
+        "generate-jamba", "float32 decode_step vs forward_train (capacity "
+        "factor 8), 80 positions", dec, train, F32_MAX_REL, F32_MEAN_REL)
+    row["f32_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del params, dec, train
+    return row
+
+
+def phase_chunked(timer: Timer, device: torch.device, smi: str) -> dict:
+    """One qwen3-1.7b attention geometry (16 / 8 heads of 128), B = 1,
+    T = 8,192, bf16, causal: `_sdpa_chunked` (query chunks of 512), the
+    plain `_sdpa` (float32 scores of 4.3 GB), K3 and SDPA.  Chunked
+    against plain and SDPA against plain within the bf16 tolerance of
+    `kernels/tolerance.py`, K3 against its plain version (in
+    `measure_fwd`) and against the plain `_sdpa` there too.  -> K3's
+    measurement at this shape, with the other three's times."""
+    _free("chunked", device)
+    cfg = get_config("qwen3-1.7b")
+    gen = torch.Generator(device).manual_seed(12)
+    b, t = 1, 8192
+    h, hkv, hd = GEOMETRIES["qwen3-1.7b"]
+    q, k, v = (torch.randn(b, t, n, hd, generator=gen, device=device)
+               .to(torch.bfloat16) for n in (h, hkv, hkv))
+    mask = attn_mod.causal_mask(t, t, 0, device=device)[None]
+    with torch.inference_mode():
+        plain = attn_mod._sdpa(q, k, v, cfg, mask)
+        chunked = attn_mod._sdpa_chunked(q, k, v, cfg)
+        flash = ops.flash_attention(q, k, v, causal=True)
+        sdpa = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.repeat_interleave(h // hkv, 2).transpose(1, 2),
+            v.repeat_interleave(h // hkv, 2).transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+    tol = TOL[torch.bfloat16]
+    errs = {"chunked_vs_plain": _close(chunked, plain, tol),
+            "k3_vs_plain": _close(flash, plain, tol),
+            "sdpa_vs_plain": _close(sdpa, plain, tol)}
+    del plain, chunked, flash, sdpa
+    torch.cuda.empty_cache()
+    k3 = measure_fwd(timer, q, k, v, 0, 0.0)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats(device)
+        plain_ms = timer.ms(lambda: attn_mod._sdpa(q, k, v, cfg, mask), 3)
+        plain_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        torch.cuda.reset_peak_memory_stats(device)
+        chunked_ms = timer.ms(lambda: attn_mod._sdpa_chunked(q, k, v, cfg))
+        chunked_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    row = dict(q=[b, t, h, hd], errors=errs, errors_tolerance=tol,
+               sdpa_plain_ms=plain_ms, sdpa_plain_peak_gib=plain_peak,
+               sdpa_chunked_ms=chunked_ms,
+               sdpa_chunked_peak_gib=chunked_peak, **k3)
+    log("chunked", f"{json.dumps(row)} on {smi}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2351,6 +2798,12 @@ def main() -> int:
     mix = phase_sim_kernels(timer, device, smi)
     sim_launches = phase_sim(device, smi)
     paper_launches = phase_sim_paper(device, smi)
+    phase_generate(device, smi)
+    phase_generate_xlstm(device, smi)
+    phase_generate_jamba(device, smi)
+    k3_shapes["chunked-8192"] = phase_chunked(timer, device, smi)
+    log("report", f"K3 at the chunked phase's shape q (1, 8192, 16, 128): "
+        f"{json.dumps(k3_shapes['chunked-8192'])}")
     src = "src/repro_torch/csrc/hier_mix.cu"
 
     def mix_entry(key, name, line):

@@ -10,6 +10,11 @@ Ported so far:
 
 * the serving path -- ``serve.engine.ServeEngine`` over the paged KV cache
   and the attention transformer it runs;
+* offline generation -- ``serve.serve_step.generate`` over the rotating
+  dense decode cache for every architecture of the registry (attention,
+  mamba, mLSTM / sLSTM, dense MLP or MoE; token, frame-embedding and
+  patch inputs), sampling with `jax.random`'s bits, and chunked attention
+  (``impl="chunked" | "auto"``);
 * the production trainer -- ``launch.train`` -> ``launch.harness`` ->
   ``core.protocol``: the two-level network, readiness-policy plans, the
   gated inner optimizers, every registered mixing strategy (dense /
@@ -30,11 +35,12 @@ Ported so far:
   its backward and the backward's dR / db reduction).
 
 Device rule: entry points that create tensors (``init_model``,
-``init_paged_state``, ``ServeEngine``, ``state_from_network``,
-``run_training``, ``load_u_k``, ``simulate``, ``run_timeline``,
-``interop.params_from_numpy``) run on ``cuda`` unless the caller passes
-``device="cpu"``, and raise when no GPU is present.  Functions that take
-tensors run where those tensors live.
+``init_paged_state``, ``init_decode_state``, ``ServeEngine``,
+``state_from_network``, ``run_training``, ``load_u_k``, ``simulate``,
+``run_timeline``, ``interop.params_from_numpy``) run on ``cuda`` unless
+the caller passes ``device="cpu"``, and raise when no GPU is present.
+Functions that take tensors run where those tensors live (``generate``
+runs where the params are).
 """
 from __future__ import annotations
 

@@ -26,12 +26,21 @@ port's gated trajectory is the reference's without injecting θ:
 * ``randint(key, (n,), lo, hi)`` with int32: ``k1, k2 = split(key, 2)``,
   32 random bits from each, then ``((hi_bits % span) * m + lo_bits % span)
   % span`` with ``m = (2^16 % span)^2 % span``, in wrapping uint32 (JAX's
-  ``_randint``).
+  ``_randint``);
+* ``gumbel(key, (n,))`` in its default ``mode="low"``: a uniform on
+  ``[tiny, 1)`` (the ``[0, 1)`` draw plus ``tiny``, floored at ``tiny``),
+  then ``-log(-log(u))`` with XLA's float32 ``log`` on the CPU (Cephes'
+  polynomial, its multiply-adds fused as XLA fuses them): every bit equal
+  to ``jax.random.gumbel`` (tests/test_torch_prng.py);
+* ``categorical(key, logits)`` along the last axis: ``argmax(gumbel(key,
+  logits.shape) + logits)``, the lowest index on ties.
 
 The simulator's sampler (`repro_torch.core.timeline`) draws its batch
 indices and gates from these, so its trajectory is the JAX package's;
-PowerSGD mixing draws its initial factors with `normal`.
-Everything here runs on the host; the draws are a few words per step.
+PowerSGD mixing draws its initial factors with `normal`; sampled
+generation (`repro_torch.serve.serve_step`) draws with `categorical`.
+The draws run on the host: a few words per step, or one per logit for
+`categorical`, whose noise then moves to the logits' device.
 """
 from __future__ import annotations
 
@@ -151,3 +160,97 @@ def normal(key: tuple[int, int], n: int) -> np.ndarray:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = np.maximum(lo, uniform(key, n) * (np.float32(1.0) - lo) + lo)
     return np.float32(np.sqrt(2)) * erf_inv(u)
+
+
+
+
+# ------------------------------------------------ bulk draws, in torch
+# `categorical` takes one draw per logit (~600 K a decode step at B = 4 and
+# vocab 151936), so `gumbel` computes where the logits live: the threefry
+# and bit tricks above over int64 tensors holding uint32 words, and XLA's
+# float32 log with each fused multiply-add as a float64 add of an exact
+# float32 product, rounded to float32 once.  The same bits on any device.
+_M32 = 0xFFFFFFFF
+# Cephes' logf polynomial in x - 1 on [sqrt(1/2), sqrt(2)), highest power
+# first, and ln 2 split into a short and a long part
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _threefry_t(key: tuple[int, int], x0, x1):
+    """`threefry2x32` over int64 tensors of uint32 words."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _fma_t(a, b, c):
+    """float32 ``a * b + c`` rounded once (tensors or float32 constants)."""
+    import torch
+
+    def wide(z):
+        return z.double() if isinstance(z, torch.Tensor) else float(
+            np.float32(z))
+    return (wide(a) * wide(b) + wide(c)).float()
+
+
+def log_f32(x):
+    """XLA's float32 ``log`` on the CPU for a positive float32 tensor (what
+    ``jnp.log`` computes there; ~14% of its results differ from the
+    correctly rounded log): the exponent split off, the mantissa moved to
+    [sqrt(1/2), sqrt(2)) and shifted by -1, the polynomial evaluated as
+    three interleaved Horner chains of fused multiply-adds."""
+    import torch
+    f32 = np.float32
+    bits = x.clamp(min=float(np.finfo(f32).tiny)).view(torch.int32).long()
+    e = 1.0 + ((bits >> 23) - 127).float()
+    m = ((bits & 0x807FFFFF) | 0x3F000000).int().view(torch.float32)
+    low = m < float(f32(0.707106781186547524))
+    e = e - low.float()
+    m = (m - 1.0) + torch.where(low, m, 0.0)
+    m2 = m * m
+    m3 = m2 * m
+    p = _LOG_P
+    y = _fma_t(_fma_t(m, p[0], p[1]), m, p[2])
+    y1 = _fma_t(_fma_t(m, p[3], p[4]), m, p[5])
+    y2 = _fma_t(_fma_t(m, p[6], p[7]), m, p[8])
+    y = _fma_t(_fma_t(y, m3, y1), m3, y2)
+    y = _fma_t(y, m3, e * float(f32(_LOG_Q1)))
+    m = m - m2 * 0.5
+    return (m + y) + e * float(f32(_LOG_Q2))
+
+
+def gumbel(key: tuple[int, int], shape, device=None):
+    """``jax.random.gumbel(key, shape, jnp.float32)`` (mode "low", the
+    default) as a float32 tensor on ``device``, every bit equal: a uniform
+    on [tiny, 1) (the [0, 1) draw plus tiny, floored at tiny), then
+    ``-log(-log(u))``.  The draws follow the flat index."""
+    import torch
+    n = int(np.prod(shape))
+    x1 = torch.arange(n, dtype=torch.int64, device=device)
+    y0, y1 = _threefry_t(key, torch.zeros_like(x1), x1)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    u = bits.int().view(torch.float32) - 1.0
+    tiny = float(np.finfo(np.float32).tiny)
+    u = torch.clamp(u * float(np.float32(1.0) - np.float32(tiny)) + tiny,
+                    min=tiny)
+    return (-log_f32(-log_f32(u))).reshape(shape)
+
+
+def categorical(key: tuple[int, int], logits):
+    """``jax.random.categorical(key, logits, axis=-1)`` for a float32
+    tensor: the argmax over the last axis of the Gumbel noise (drawn on
+    the logits' device) plus the logits, the lowest index on ties ->
+    int64 indices of the row shape."""
+    import torch
+    noise = gumbel(key, tuple(logits.shape), logits.device)
+    return torch.argmax(noise + logits, dim=-1)

@@ -4,8 +4,10 @@ numpy arrays.
 The JAX params tree and the port's params share every key and every leaf
 layout (``wq (d, H, hd)``, ``wk``/``wv (d, Hkv, hd)``, ``wo (H, hd, d)``,
 ``bq (H, hd)``, ``w_gate``/``w_up (d, f)``, ``w_down (f, d)``,
-``table (V, d)``, ``lm_head (d, V)``, norm ``scale``/``bias (d,)``), so a
-leaf converts by copying.  The one structural difference is depth: the JAX
+``table (V, d)``, ``lm_head (d, V)``, norm ``scale``/``bias (d,)``; mamba's
+``in_proj (d, 2 di)``, ``conv_w (K, di)``, ``a_log (di, N)``, ``dt_bias`` /
+``d_skip (di,)``; MoE's ``router (d, E)``, ``w_gate`` / ``w_up (E, d, f)``,
+``w_down (E, f, d)``), so a leaf converts by copying.  The one structural difference is depth: the JAX
 tree stacks all super-blocks on an axis of every ``blocks`` leaf,
 
     jax:  params["blocks"]["pos0"]["mixer"]["wq"]     (n_sb, d, H, hd)
@@ -21,6 +23,10 @@ JAX layout, `mix_state_from_numpy`); `sim_carry_from_numpy` /
 `sim_carry_to_numpy` carry a simulator carry (stacked params, opt state,
 mixing state, PRNG key) both ways, the JAX key array becoming the
 `core.prng` key pair.
+
+`decode_state_from_numpy` / `decode_state_to_numpy` carry a dense decode
+state (`models.model.init_decode_state`), whose JAX leaves stack the
+super-blocks on axis 0 where the port keeps a list.
 
 `map_with_keys` walks a port tree in the JAX package's checkpoint key
 scheme (``::``-joined paths, NamedTuple fields spelled ``.params``), which
@@ -128,6 +134,25 @@ def params_from_numpy(tree: dict, cfg: ArchConfig,
 def params_to_numpy(params: dict) -> dict:
     """Inverse of `params_from_numpy`: the JAX tree layout, as numpy."""
     return tree_to_numpy(params)
+
+
+def decode_state_from_numpy(state: dict,
+                            device: str | torch.device | None = None
+                            ) -> list[dict]:
+    """The JAX package's dense decode state as numpy (``{"pos{i}": leaves
+    stacked on axis 0 over the super-blocks}``) -> the port's list of one
+    state dict per super-block on ``device`` (default ``cuda``; raises
+    without a GPU unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    return [tree_map(lambda a, i=i: _to_tensor(np.take(np.asarray(a), i, 0),
+                                               device), state)
+            for i in range(_first_leaf(state).shape[0])]
+
+
+def decode_state_to_numpy(states: list[dict]) -> dict:
+    """Inverse of `decode_state_from_numpy`: the JAX layout, as numpy."""
+    return tree_map(lambda *xs: np.stack([_to_numpy(x) for x in xs]),
+                    *states)
 
 
 def mix_state_from_numpy(mix_state: Any,

@@ -296,6 +296,11 @@ _GROUPED = (hier_mix, hier_mix_pytree, hier_mix_packed,
             hier_mix_packed_chunked)
 
 
+def launch_counts() -> dict[str, int]:
+    """{wrapper name: launches since the last `reset_launches`}."""
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
 def reset_launches() -> None:
     for fn in _COUNTED:
         fn.launches = 0

@@ -14,7 +14,9 @@ A `TimelinePlan` compiled by any registered readiness policy (``barrier`` /
 The JAX package jit-compiles power-of-two scans of local slots; PyTorch
 runs eagerly, so the port executes the same plan slot by slot.  One batch
 is drawn per slot in the same order, so both packages consume the same
-data.
+data.  ``impl`` selects the attention core as in `models.attention`
+(``"flash"``, ``"plain"``, ``"chunked"`` or ``"auto"``, the JAX harness's
+choices); the launcher offers ``flash`` and ``plain``.
 
 Beyond the executor, the harness owns the run lifecycle: measured worker
 rates (`measure_worker_rates`), full-protocol checkpoints every
@@ -76,7 +78,8 @@ def measure_worker_rates(cfg: ArchConfig, params_stacked: Tree,
         wp = tree_map(lambda x: x[i].detach().requires_grad_(), params_stacked)
         wb = {k: v[i].to(device) for k, v in batch.items()}
         leaves = tree_leaves(wp)
-        torch.autograd.grad(loss_fn(wp, wb, cfg, impl=impl)[0], leaves)
+        torch.autograd.grad(loss_fn(wp, wb, cfg, impl=impl)[0], leaves,
+                            allow_unused=True)
         _sync(device)
 
     times = []

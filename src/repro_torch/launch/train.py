@@ -52,7 +52,7 @@ from repro_torch.launch.harness import (CALIBRATION_FILE, measure_worker_rates,
                                         plan_config, resolve_measured_network,
                                         run_plan)
 from repro_torch.models import model as model_mod
-from repro_torch.models.attention import IMPLS, check_impl
+from repro_torch.models.attention import KERNEL_IMPLS, check_impl
 from repro_torch.optim import optimizers as optim_mod
 from repro_torch.train import checkpoint
 
@@ -117,7 +117,7 @@ def run_training(cfg: ArchConfig, mll: MLLConfig, loop: TrainLoopConfig,
     from a ``torch.Generator`` seeded with ``loop.seed``.  -> loss history,
     final averaged params, plan, network, train state, calibration,
     trace path."""
-    check_impl(loop.impl)
+    check_impl(loop.impl, KERNEL_IMPLS)
     if loop.mesh is not None:
         raise NotImplementedError(
             "--mesh (SPMD execution) is not ported yet (ROADMAP.md Queue 1, "
@@ -236,7 +236,7 @@ def main(argv=None):
     ap.add_argument("--rate-model", default="bernoulli", choices=RATE_MODELS,
                     help="'measured' profiles per-worker step times in a "
                          "warmup pass instead of using hand-fed p_i")
-    ap.add_argument("--impl", default="flash", choices=IMPLS,
+    ap.add_argument("--impl", default="flash", choices=KERNEL_IMPLS,
                     help="'flash' trains attention through the hand-written "
                          "kernels (forward + backward), 'plain' through "
                          "plain PyTorch")

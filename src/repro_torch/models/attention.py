@@ -1,8 +1,9 @@
 """Grouped-query attention with RoPE variants, qk-norm, QKV-bias, logit
-soft-cap and sliding windows; the train/prefill forward and the paged
-decode step (counterpart of `repro/models/attention.py`).
+soft-cap and sliding windows; the train/prefill forward, the paged decode
+step and the rotating-buffer dense decode cache (counterpart of
+`repro/models/attention.py`).
 
-``impl`` selects the attention core:
+``impl`` selects the train/prefill attention core:
 
 * ``"flash"`` (default) -- the hand-written kernels through
   `repro_torch.kernels.ops`: flash-attention forward for train/prefill,
@@ -10,11 +11,17 @@ decode step (counterpart of `repro/models/attention.py`).
   on CPU tensors the wrappers run their plain versions.
 * ``"plain"`` -- the masked `_sdpa` (and, for decode, a gather of the block
   table into a dense view): the counterpart of the JAX ``"xla"`` oracle.
+* ``"chunked"`` -- `_sdpa_chunked`, the masked `_sdpa` over query chunks of
+  512 (scores (B, Hkv, G, 512, S) at a time); ``"auto"`` takes it from
+  2,048 tokens on and the plain path below.  Paged decode takes
+  ``"flash"`` or ``"plain"``.
 
-The rotating-buffer decode cache (`init_cache`, `attention_decode`,
-`fill_cache_from_prefill`) and `_sdpa_chunked` are not ported yet (see
-ROADMAP.md).  The JAX version's sharding ``constraint`` calls have no
-counterpart on one device and are dropped.
+The dense decode cache (`init_cache`, `attention_decode`,
+`fill_cache_from_prefill`) keeps absolute positions per slot, so one code
+path serves full and sliding-window attention; `attention_decode` always
+runs `_sdpa` over the whole buffer, as the JAX version does.  The JAX
+version's sharding ``constraint`` calls (``decode_coshard`` included) are
+layout hints with no meaning on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -29,12 +36,15 @@ from repro_torch.models.layers import dtype_of, init_norm, norm_apply, trunc_nor
 from repro_torch.serve import kv_cache as kvc
 
 NEG_INF = -1e30
-IMPLS = ("flash", "plain")
+IMPLS = ("flash", "plain", "chunked", "auto")
+# the impls of the paged decode step and the sLSTM recurrence
+KERNEL_IMPLS = ("flash", "plain")
+CHUNK_FROM = 2048                 # "auto" runs `_sdpa_chunked` from here
 
 
-def check_impl(impl: str) -> None:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r} (flash | plain)")
+def check_impl(impl: str, impls: tuple[str, ...] = IMPLS) -> None:
+    if impl not in impls:
+        raise ValueError(f"unknown impl {impl!r} ({' | '.join(impls)})")
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -100,15 +110,37 @@ def _sdpa(q, k, v, cfg: ArchConfig, mask: torch.Tensor) -> torch.Tensor:
 
 
 def causal_mask(t: int, s: int, window: int,
-                device: torch.device | None = None) -> torch.Tensor:
-    """(t, s) boolean mask.  Query i may attend to key j iff j <= i and,
-    when window > 0, i - j < window."""
-    qpos = torch.arange(t, device=device)[:, None]
+                device: torch.device | None = None,
+                offset: int = 0) -> torch.Tensor:
+    """(t, s) boolean mask.  Query i (absolute position offset + i) may
+    attend to key j iff j <= offset + i and, when window > 0,
+    offset + i - j < window."""
+    qpos = torch.arange(t, device=device)[:, None] + offset
     kpos = torch.arange(s, device=device)[None, :]
     m = kpos <= qpos
     if window > 0:
         m &= (qpos - kpos) < window
     return m
+
+
+def _sdpa_chunked(q, k, v, cfg: ArchConfig, *,
+                  block_q: int = 512) -> torch.Tensor:
+    """Causal attention over query chunks of ``block_q`` (the last one
+    zero-padded), so the float32 scores are (B, Hkv, G, block_q, S) at a
+    time instead of (B, Hkv, G, T, S); each chunk is `_sdpa` under its own
+    causal and window mask, as the JAX version's `lax.scan` body."""
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    block_q = min(block_q, t)
+    pad = -t % block_q
+    if pad:
+        q = torch.cat([q, q.new_zeros((b, pad, h, hd))], dim=1)
+    outs = []
+    for i in range(0, t + pad, block_q):
+        mask = causal_mask(block_q, s, cfg.sliding_window, device=q.device,
+                           offset=i)
+        outs.append(_sdpa(q[:, i:i + block_q], k, v, cfg, mask[None]))
+    return torch.cat(outs, dim=1)[:, :t]
 
 
 def attention_train(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -131,12 +163,72 @@ def attention_prefill(params: dict, x: torch.Tensor, cfg: ArchConfig,
         out = kops.flash_attention(q, k, v, causal=True,
                                    window=cfg.sliding_window,
                                    softcap=cfg.logit_softcap)
+    elif impl == "chunked" or (impl == "auto" and s >= CHUNK_FROM):
+        out = _sdpa_chunked(q, k, v, cfg)
     else:
         mask = causal_mask(s, s, cfg.sliding_window, device=x.device)[None]
         out = _sdpa(q, k, v, cfg, mask)
     cdt = dtype_of(cfg.compute_dtype)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cdt))
     return y, k, v
+
+
+# ------------------------------------------------------------------ KV cache
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: torch.device) -> dict:
+    """Rotating-buffer cache, zero-filled, every slot's position -1.  With
+    a sliding window only ``min(max_len, window)`` slots are kept."""
+    buf = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    dt = dtype_of(cfg.compute_dtype)
+    return {
+        "k": torch.zeros((batch, buf, hkv, hd), dtype=dt, device=device),
+        "v": torch.zeros((batch, buf, hkv, hd), dtype=dt, device=device),
+        "pos": torch.full((batch, buf), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                     cur: int, cache: dict) -> tuple[torch.Tensor, dict]:
+    """One-token decode.  x: (B, 1, d); ``cur``: the new token's absolute
+    position.  Its k/v and position go into slot ``cur % buf`` of the cache
+    (in place), then the query attends to every slot whose position is
+    valid: written, not after ``cur`` and, with a window, within it.
+    -> (y (B, 1, d), cache)."""
+    cur = int(cur)
+    b = x.shape[0]
+    positions = rope_mod.default_positions(cfg, b, 1, offset=cur,
+                                           device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slot = cur % ck.shape[1]
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    cpos[:, slot] = cur
+    valid = (cpos >= 0) & (cpos <= cur)
+    if cfg.sliding_window:
+        valid &= (cur - cpos) < cfg.sliding_window
+    out = _sdpa(q, ck, cv, cfg, valid[:, None, :])
+    cdt = dtype_of(cfg.compute_dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cdt))
+    return y, cache
+
+
+def fill_cache_from_prefill(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                            cfg: ArchConfig) -> dict:
+    """Fill a rotating-buffer cache (in place) from a batched prefill's
+    k/v (B, S, Hkv, hd) for absolute positions 0..S-1: each lands where S
+    `attention_decode` steps would have put it (slot = pos % buf; only
+    the last ``buf`` positions survive a sliding-window rotation)."""
+    s = k.shape[1]
+    buf = cache["k"].shape[1]
+    m = min(s, buf)
+    pos = torch.arange(s - m, s, dtype=torch.int32, device=k.device)
+    slots = (pos % buf).long()
+    cache["k"][:, slots] = k[:, s - m:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, s - m:].to(cache["v"].dtype)
+    cache["pos"][:, slots] = pos[None].expand(cache["pos"].shape[0], m)
+    return cache
 
 
 def attention_paged_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -152,7 +244,7 @@ def attention_paged_decode(params: dict, x: torch.Tensor, cfg: ArchConfig,
     whose output the engine ignores).  The new token's k/v go into the
     pools (in place) before attention reads them.
     -> (y (B, 1, d), pools)."""
-    check_impl(impl)
+    check_impl(impl, KERNEL_IMPLS)
     b = x.shape[0]
     positions = rope_mod.default_positions(
         cfg, b, 1, offset=(lengths.long() - 1).clamp(min=0)[:, None])

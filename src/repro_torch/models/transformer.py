@@ -1,15 +1,16 @@
 """Block assembly: pattern-driven super-blocks run over depth (counterpart
-of `repro/models/transformer.py`: attention, mLSTM and sLSTM mixers and
-dense MLPs).
+of `repro/models/transformer.py`: attention, mamba, mLSTM and sLSTM
+mixers, dense MLPs and MoE).
 
 A *super-block* is one repetition of ``cfg.pattern``.  Where the JAX version
 stacks all ``cfg.num_super_blocks`` repetitions on a leading axis and runs
 one `jax.lax.scan`, the port keeps a list of per-super-block parameter
-dicts (``blocks[i]["pos{j}"]``) and a Python loop over them.
+dicts (``blocks[i]["pos{j}"]``) and a Python loop over them; decode states
+are lists the same way (``states[i]["pos{j}"]``).
 
-Mamba positions and MoE positions are not ported and raise
-`NotImplementedError`.  Serving (prefill and paged decode) takes
-attention-only patterns, as in the JAX package.
+Every block kind trains and decodes (`stack_train`, `stack_decode`).  The
+batched prefill and the paged decode take attention-only patterns, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -17,15 +18,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import dtype_of, init_mlp, init_norm, mlp_apply, norm_apply
 from repro_torch.serve import kv_cache as kvc
 
-_NOT_PORTED = ("ROADMAP.md Queue 1, 'Other architectures': mamba and MoE "
-               "are not ported yet")
-
 _MIXER_INIT = {
     "attn": attn_mod.init_attention,
+    "mamba": mamba_mod.init_mamba,
     "mlstm": xlstm_mod.init_mlstm,
     "slstm": xlstm_mod.init_slstm,
 }
@@ -41,17 +42,7 @@ def _has_ffn(cfg: ArchConfig, kind: str, pos: int) -> bool:
     return cfg.d_ff > 0 or _position_uses_moe(cfg, pos)
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    for pos, kind in enumerate(cfg.pattern):
-        if kind not in _MIXER_INIT or _position_uses_moe(cfg, pos):
-            raise NotImplementedError(
-                f"{cfg.name}: block {kind!r} at pattern position {pos}"
-                f"{' with MoE' if kind in _MIXER_INIT else ''}: "
-                f"{_NOT_PORTED}")
-
-
 def _require_attn_only(cfg: ArchConfig, what: str) -> None:
-    _require_ported(cfg)
     if any(kind != "attn" for kind in cfg.pattern):
         raise NotImplementedError(
             f"{what} supports attention-only patterns; {cfg.name} has "
@@ -62,14 +53,14 @@ def _require_attn_only(cfg: ArchConfig, what: str) -> None:
 # ----------------------------------------------------------------- init
 def init_super_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Params for one repetition of the pattern (dict keyed by position)."""
-    _require_ported(cfg)
     blocks = {}
     for pos, kind in enumerate(cfg.pattern):
         b = {"norm1": init_norm(cfg, gen.device),
              "mixer": _MIXER_INIT[kind](gen, cfg)}
         if _has_ffn(cfg, kind, pos):
             b["norm2"] = init_norm(cfg, gen.device)
-            b["ffn"] = init_mlp(gen, cfg)
+            b["ffn"] = (moe_mod.init_moe(gen, cfg)
+                        if _position_uses_moe(cfg, pos) else init_mlp(gen, cfg))
         blocks[f"pos{pos}"] = b
     return blocks
 
@@ -79,11 +70,22 @@ def init_stacked_blocks(gen: torch.Generator, cfg: ArchConfig) -> list[dict]:
     return [init_super_block(gen, cfg) for _ in range(cfg.num_super_blocks)]
 
 
+def _ffn_aux(b: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
+             pos: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The position's FFN (dense MLP or MoE) with its residual -> (x, the
+    MoE aux loss or None)."""
+    if not _has_ffn(cfg, kind, pos):
+        return x, None
+    h = norm_apply(b["norm2"], x, cfg)
+    if _position_uses_moe(cfg, pos):
+        y, aux = moe_mod.moe_apply(b["ffn"], h, cfg)
+        return x + y, aux
+    return x + mlp_apply(b["ffn"], h, cfg), None
+
+
 def _ffn(b: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
          pos: int) -> torch.Tensor:
-    if _has_ffn(cfg, kind, pos):
-        x = x + mlp_apply(b["ffn"], norm_apply(b["norm2"], x, cfg), cfg)
-    return x
+    return _ffn_aux(b, x, cfg, kind, pos)[0]
 
 
 # ----------------------------------------------------------------- train fwd
@@ -91,6 +93,8 @@ def _mixer_train(params: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
                  positions: torch.Tensor, impl: str) -> torch.Tensor:
     if kind == "attn":
         return attn_mod.attention_train(params, h, cfg, positions, impl)
+    if kind == "mamba":
+        return mamba_mod.mamba_train(params, h, cfg)
     if kind == "mlstm":
         return xlstm_mod.mlstm_train(params, h, cfg)
     return xlstm_mod.slstm_train(params, h, cfg, impl=impl)
@@ -99,15 +103,20 @@ def _mixer_train(params: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
 def stack_train(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor, *, impl: str = "flash"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss_sum); aux is 0 without MoE."""
-    _require_ported(cfg)
+    """x: (B, S, d) -> (y, aux_loss_sum).  The MoE aux losses add up per
+    super-block, then over super-blocks, as the JAX scan carries them."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params in blocks:
+        blk_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos, kind in enumerate(cfg.pattern):
             b = params[f"pos{pos}"]
             h = norm_apply(b["norm1"], x, cfg)
             x = x + _mixer_train(b["mixer"], h, cfg, kind, positions, impl)
-            x = _ffn(b, x, cfg, kind, pos)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _ffn_aux(b, x, cfg, kind, pos)
+            if a is not None:
+                blk_aux = blk_aux + a
+        aux = aux + blk_aux
+    return x, aux
 
 
 # ------------------------------------------------------------------ prefill
@@ -164,6 +173,60 @@ def stack_paged_decode(blocks: list[dict], states: list[dict],
             mixed, layer[f"pos{pos}"] = attn_mod.attention_paged_decode(
                 b["mixer"], h, cfg, state[f"pos{pos}"], block_tables,
                 lengths, impl)
+            x = _ffn(b, x + mixed, cfg, kind, pos)
+        new_states.append(layer)
+    return x, new_states
+
+
+# ------------------------------------------------------------------- decode
+def init_super_block_state(cfg: ArchConfig, batch: int, max_len: int,
+                           device: torch.device) -> dict:
+    """One super-block's decode state, keyed by position: a rotating KV
+    cache per attention position, the recurrent state of the others."""
+    st = {}
+    for pos, kind in enumerate(cfg.pattern):
+        if kind == "attn":
+            st[f"pos{pos}"] = attn_mod.init_cache(cfg, batch, max_len, device)
+        elif kind == "mamba":
+            st[f"pos{pos}"] = mamba_mod.init_mamba_state(cfg, batch, device)
+        elif kind == "mlstm":
+            st[f"pos{pos}"] = xlstm_mod.init_mlstm_state(cfg, batch, device)
+        else:
+            st[f"pos{pos}"] = xlstm_mod.init_slstm_state(cfg, batch, device)
+    return st
+
+
+def init_stacked_state(cfg: ArchConfig, batch: int, max_len: int,
+                       device: torch.device) -> list[dict]:
+    """One `init_super_block_state` per super-block, in depth order."""
+    return [init_super_block_state(cfg, batch, max_len, device)
+            for _ in range(cfg.num_super_blocks)]
+
+
+def _mixer_decode(params: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
+                  cur: int, state: dict) -> tuple[torch.Tensor, dict]:
+    if kind == "attn":
+        return attn_mod.attention_decode(params, h, cfg, cur, state)
+    if kind == "mamba":
+        return mamba_mod.mamba_decode(params, h, cfg, state)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_decode(params, h, cfg, state)
+    return xlstm_mod.slstm_decode(params, h, cfg, state)
+
+
+def stack_decode(blocks: list[dict], states: list[dict], x: torch.Tensor,
+                 cfg: ArchConfig, cur: int) -> tuple[torch.Tensor, list[dict]]:
+    """One token (x (B, 1, d)) at absolute position ``cur`` through every
+    layer -> (y, new states).  Attention caches are written in place; the
+    recurrent states are new tensors."""
+    new_states = []
+    for params, state in zip(blocks, states):
+        layer = {}
+        for pos, kind in enumerate(cfg.pattern):
+            b = params[f"pos{pos}"]
+            h = norm_apply(b["norm1"], x, cfg)
+            mixed, layer[f"pos{pos}"] = _mixer_decode(
+                b["mixer"], h, cfg, kind, cur, state[f"pos{pos}"])
             x = _ffn(b, x + mixed, cfg, kind, pos)
         new_states.append(layer)
     return x, new_states

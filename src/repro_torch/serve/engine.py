@@ -161,7 +161,7 @@ class ServeEngine:
                 f"has {cfg.pattern}")
         if cfg.input_mode != "tokens":
             raise NotImplementedError("ServeEngine serves token models only")
-        attn_mod.check_impl(ecfg.impl)
+        attn_mod.check_impl(ecfg.impl, attn_mod.KERNEL_IMPLS)
         self.device = resolve_device(device)
         self.cfg, self.ecfg = cfg, ecfg
         self.params = _to_device(params, self.device)

@@ -52,6 +52,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def loss_fn(params: Tree, batch: dict, cfg: ArchConfig, *,
             impl: str = "flash") -> tuple[torch.Tensor, dict]:
     logits, aux = model_mod.forward_train(params, batch, cfg, impl=impl)
+    if cfg.input_mode == "tokens+patches":
+        # patches are prepended: only text positions carry labels
+        logits = logits[:, cfg.num_patches:]
     ce = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -76,7 +79,10 @@ def per_worker_grads(params: Tree, batch: dict, cfg: ArchConfig, *,
     for i in range(w):
         wp = tree_map(lambda x: x[i].detach().requires_grad_(), params)
         loss, m = loss_fn(wp, _worker(batch, i), cfg, impl=impl)
-        g = torch.autograd.grad(loss, tree_leaves(wp))
+        # a leaf the loss does not read (the token table of a model fed
+        # frame embeddings) gets a zero gradient, as under jax.grad
+        g = torch.autograd.grad(loss, tree_leaves(wp), allow_unused=True,
+                                materialize_grads=True)
         with torch.no_grad():
             for dst, src in zip(tree_leaves(_worker(grads, i)), g):
                 dst.copy_(src)

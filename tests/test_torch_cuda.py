@@ -683,3 +683,89 @@ def test_cuda_hub_round_matches_cpu(cuda_device, name):
         if k.startswith("q::"):
             got = align_columns(got, want)
         ladder_error(name, got, want, scale=scale)
+
+
+# -------------------------------------------- offline generation, MoE, mamba
+def _smoke_model(arch, device, **kw):
+    """A smoke config's float32 params, drawn on the CPU from a seed, and
+    a copy on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype="float32",
+                              compute_dtype="float32", **kw)
+    cpu = model_mod.init_model(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    return cfg, cpu, tree_map(lambda x: x.to(device), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prefill", [("qwen2-0.5b", "batched"),
+                                          ("qwen2-0.5b", "loop"),
+                                          ("qwen3-1.7b", "batched"),
+                                          ("jamba-v0.1-52b", "loop"),
+                                          ("xlstm-125m", "loop")])
+def test_cuda_generate_matches_cpu(cuda_device, arch, prefill):
+    """`generate` on the card against the CPU port at smoke size, greedy
+    and sampled (the Gumbel noise is drawn on each side's device, with the
+    same bits): the same tokens."""
+    from repro_torch.serve import serve_step as ss_mod
+
+    cfg, cpu, gpu = _smoke_model(arch, cuda_device)
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 7))
+    for kw in (dict(), dict(temperature=1.0, seed=3)):
+        want = ss_mod.generate(cpu, prompt, cfg, max_new=8, prefill=prefill,
+                               **kw)
+        got = ss_mod.generate(gpu, prompt, cfg, max_new=8, prefill=prefill,
+                              **kw)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), kw
+
+
+@pytest.mark.cuda
+def test_cuda_gumbel_bits_equal_cpu(cuda_device):
+    """The sampler's noise: threefry and XLA's float32 log, the same bits
+    on the card as on the CPU (and so as `jax.random.gumbel`)."""
+    from repro_torch.core import prng
+
+    for seed in (0, 3, 2**31 - 1):
+        key = prng.prng_key(seed)
+        want = prng.gumbel(key, (4, 151936))
+        got = prng.gumbel(key, (4, 151936), cuda_device)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_same_bits_twice(cuda_device, dtype):
+    """MoE dispatch and combine on the card: the same bits on two runs
+    (indexed writes, a k-ordered combine, no atomics), drops included,
+    and the CPU's output within float32 / bf16 rounding."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-moe-235b-a22b"),
+                              param_dtype=dtype, compute_dtype=dtype,
+                              capacity_factor=0.5)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1)).to(getattr(torch, dtype))
+    gparams = {k: v.to(cuda_device) for k, v in params.items()}
+    y1, aux1 = moe.moe_apply(gparams, x.to(cuda_device), cfg)
+    y2, aux2 = moe.moe_apply(gparams, x.to(cuda_device), cfg)
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+    want, want_aux = moe.moe_apply(params, x, cfg)
+    dropped = want.float().norm(dim=-1) == 0
+    assert dropped.any()
+    assert torch.equal(y1.cpu().float().norm(dim=-1) == 0, dropped)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(y1.cpu().float(), want.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(aux1.cpu(), want_aux, atol=1e-6, rtol=1e-5)

@@ -20,7 +20,7 @@ def _port_modules():
         m.name for m in pkgutil.walk_packages([str(PORT)], "repro_torch.")]
 
 
-SLICE_MODULES = (  # the serving, trainer and simulator slices
+SLICE_MODULES = (  # the serving, trainer, simulator and generation slices
     "repro_torch.serve.engine", "repro_torch.kernels.ops",
     "repro_torch.core.topology", "repro_torch.core.hierarchy",
     "repro_torch.core.prng", "repro_torch.core.protocol",
@@ -30,7 +30,9 @@ SLICE_MODULES = (  # the serving, trainer and simulator slices
     "repro_torch.train.checkpoint", "repro_torch.launch.harness",
     "repro_torch.launch.train", "repro_torch.interop", "repro_torch.tree",
     "repro_torch.core.packing", "repro_torch.core.baselines",
-    "repro_torch.core.outer", "repro_torch.kernels.hier_mix")
+    "repro_torch.core.outer", "repro_torch.kernels.hier_mix",
+    "repro_torch.serve.serve_step", "repro_torch.models.mamba",
+    "repro_torch.models.moe")
 
 
 def test_every_module_of_the_port_is_checked():

@@ -156,9 +156,19 @@ def test_init_model_follows_device_rule():
 
 
 def test_unported_blocks_raise():
-    tcfg = torch_smoke("jamba-v0.1-52b")
-    with pytest.raises(NotImplementedError, match="Other architectures"):
-        tmodel.init_model(torch.Generator(), tcfg, device="cpu")
+    """Every block kind initialises now; what the JAX package refuses
+    stays refused: the batched prefill of a recurrent pattern and of a
+    model fed embeddings."""
+    jamba = torch_smoke("jamba-v0.1-52b")
+    params = tmodel.init_model(torch.Generator(), jamba, device="cpu")
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        tmodel.prefill_forward(params, {"tokens": torch.ones(
+            1, 4, dtype=torch.long)}, jamba)
+    audio = torch_smoke("musicgen-large")
+    params = tmodel.init_model(torch.Generator(), audio, device="cpu")
+    with pytest.raises(NotImplementedError, match="input_mode='tokens'"):
+        tmodel.prefill_forward(params, {"frame_embeds": torch.zeros(
+            1, 4, audio.d_model)}, audio)
 
 
 def test_param_skeleton_is_init_model_without_memory():

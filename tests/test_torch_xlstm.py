@@ -335,8 +335,8 @@ def test_interop_round_trip_of_a_mixed_dtype_tree(tmp_path):
 
 
 def test_serving_takes_attention_only_patterns():
-    """Prefill and paged decode keep the JAX package's attention-only rule;
-    mamba and MoE positions still raise as not ported."""
+    """Prefill and paged decode keep the JAX package's attention-only rule,
+    for xLSTM and for jamba's mamba positions, which now initialise."""
     cfg = torch_smoke("xlstm-125m")
     params = tmodel.init_model(torch.Generator().manual_seed(0), cfg,
                                device="cpu")
@@ -347,9 +347,10 @@ def test_serving_takes_attention_only_patterns():
         tmodel.init_paged_state(cfg, 4, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="attention-only"):
         tengine.ServeEngine(params, cfg, tengine.EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mamba and MoE"):
-        tmodel.init_model(torch.Generator(), torch_smoke("jamba-v0.1-52b"),
-                          device="cpu")
+    jamba = torch_smoke("jamba-v0.1-52b")
+    tmodel.init_model(torch.Generator(), jamba, device="cpu")
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        tmodel.init_paged_state(jamba, 4, 4, device="cpu")
     skeleton = tmodel.param_skeleton(cfg)
     assert interop.leaf_spec(skeleton) == interop.leaf_spec(params)
 
