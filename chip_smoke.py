@@ -182,6 +182,7 @@ from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.serve import kv_cache as kvc  # noqa: E402
 from repro_torch.serve import serve_step  # noqa: E402
@@ -2339,45 +2340,86 @@ def loop_logits(params, cfg, seq: torch.Tensor, max_len: int, state=None
 
 @torch.inference_mode()
 def profile_dense_decode(params, cfg, prompt: torch.Tensor, max_len: int,
-                         phase: str, smi: str, n: int = 5) -> dict:
+                         phase: str, smi: str, n: int = 5,
+                         temperature: float = 0.0) -> dict:
     """Where a dense decode step's time goes: the batched prefill of
     ``prompt``, two warm steps, ``n`` steps on the host clock, then ``n``
     more under `torch.profiler`: device busy time, operations, host syncs
-    and the top device operations per step."""
+    and the top device operations per step.  Sampled steps (temperature
+    > 0) also time ``n`` calls of `prng.categorical` alone on logits of the
+    step's shape: the sampler's host time and device operations a call;
+    the sampler's host time inside the traced steps is its range there."""
     from torch.profiler import ProfilerActivity, profile
-    state, _ = serve_step._batched_prefill(params, prompt, cfg, max_len,
-                                           prng.prng_key(0))
+    state, key = serve_step._batched_prefill(params, prompt, cfg, max_len,
+                                             prng.prng_key(3))
     tok, cur = prompt[:, -1:], prompt.shape[1] - 1
 
     def steps(k):
-        nonlocal tok, state, cur
+        nonlocal tok, state, cur, key
         for _ in range(k):
-            nxt, state = serve_step.serve_step(params, state,
-                                               {"tokens": tok}, cur, cfg)
+            key, sub = prng.split(key)
+            nxt, state = serve_step.serve_step(
+                params, state, {"tokens": tok}, cur, cfg,
+                temperature=temperature, rng=sub if temperature > 0 else None)
             tok, cur = nxt[:, None], cur + 1
+
+    def traced(fn):
+        """fn under the profiler, `prng.categorical` marked as a range ->
+        (device ms by operation name, device operations, host syncs, host
+        us inside the sampler)."""
+        inner = prng.categorical
+
+        def categorical(key, logits):
+            with torch.profiler.record_function("categorical"):
+                return inner(key, logits)
+        prng.categorical = categorical
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        finally:
+            prng.categorical = inner
+        device_us: dict[str, float] = {}
+        n_ops = syncs = sampler_us = 0
+        for e in prof.events():
+            if e.name == "categorical":
+                # the range on the host; its device-side copy is no kernel
+                if e.device_type == torch.autograd.DeviceType.CPU:
+                    sampler_us += e.time_range.elapsed_us()
+            elif e.device_type == torch.autograd.DeviceType.CUDA:
+                # kernels summed by the first 70 characters of their name
+                # (template instances of one kernel share them)
+                device_us[e.name[:70]] = (device_us.get(e.name[:70], 0.0)
+                                          + e.time_range.elapsed_us())
+                n_ops += 1
+            elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+                syncs += 1
+        return device_us, n_ops, syncs, sampler_us
+
     steps(2)
     _, wall = _timed(lambda: steps(n))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps(n)
-        torch.cuda.synchronize()
-    device_us: dict[str, float] = {}
-    syncs = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device_us[e.name] = (device_us.get(e.name, 0.0)
-                                 + e.time_range.elapsed_us())
-        elif e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
-            syncs += 1
-    n_ops = sum(1 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    device_us, n_ops, syncs, sampler_us = traced(lambda: steps(n))
     busy = sum(device_us.values()) / 1e3 / n
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
-    row = dict(wall_ms_per_step=wall / n, device_busy_ms_per_step=busy,
-               busy_share=busy / (wall / n),
+    row = dict(temperature=temperature, wall_ms_per_step=wall / n,
+               device_busy_ms_per_step=busy, busy_share=busy / (wall / n),
                device_ops_per_step=n_ops / n, host_syncs_per_step=syncs / n,
-               top_device_ms_per_step={k[:70]: us / 1e3 / n
-                                       for k, us in top})
+               sampler_host_ms_per_step=sampler_us / 1e3 / n,
+               top_device_ms_per_step={k: us / 1e3 / n for k, us in top})
+    if temperature > 0:
+        logits = torch.randn(prompt.shape[0], cfg.vocab_size,
+                             device=prompt.device)
+
+        def sample():
+            for i in range(n):
+                prng.categorical((0, i), logits)
+        sample()
+        _, wall = _timed(sample)
+        device_us, n_ops, syncs, _ = traced(sample)
+        row["categorical_alone"] = dict(
+            wall_ms=wall / n, device_busy_ms=sum(device_us.values()) / 1e3
+            / n, device_ops=n_ops / n, host_syncs=syncs / n)
     log(phase, f"dense decode step at {prompt.shape[1]} tokens of "
         f"{max_len} slots: {json.dumps(row)} on {smi}")
     return row
@@ -2397,6 +2439,33 @@ def _check_tokens(phase: str, out: torch.Tensor, prompt: torch.Tensor,
             or not torch.equal(out[:, :prompt.shape[1]], prompt)
             or int(out.min()) < 0 or int(out.max()) >= vocab):
         raise AssertionError(f"{phase}: wrong shape, prefix or token range")
+
+
+def _generate_split(params, prompt: torch.Tensor, cfg, **kw
+                    ) -> tuple[torch.Tensor, float, float]:
+    """`serve_step.generate` with the batched prefill, its two parts timed
+    inside the one call: -> (tokens, prefill ms, decode ms), the decode
+    window opening when `_batched_prefill` has returned and the device has
+    drained."""
+    inner, marks = serve_step._batched_prefill, []
+
+    def prefill(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+    serve_step._batched_prefill = prefill
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_step.generate(params, prompt, cfg, prefill="batched",
+                                  **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        serve_step._batched_prefill = inner
+    (tp,) = marks
+    return out, (tp - t0) * 1e3, (t1 - tp) * 1e3
 
 
 def phase_generate(device: torch.device, smi: str) -> dict:
@@ -2422,23 +2491,22 @@ def phase_generate(device: torch.device, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launches()
-    _, prefill_ms = _timed(lambda: serve_step._batched_prefill(
-        params, prompt, cfg, max_len, prng.prng_key(0)))
     runs = {}
     for name, kw in (("greedy", {}), ("sampled", dict(temperature=0.8,
                                                       seed=3))):
-        out, ms = _timed(lambda: serve_step.generate(
-            params, prompt, cfg, max_new=max_new, max_len=max_len,
-            prefill="batched", **kw))
+        out, prefill_ms, decode_ms = _generate_split(
+            params, prompt, cfg, max_new=max_new, max_len=max_len, **kw)
         _check_tokens("generate", out, prompt, max_new, cfg.vocab_size)
-        runs[name] = dict(tokens=out, wall_ms=ms,
-                          decode_ms_per_step=(ms - prefill_ms) / max_new,
-                          tokens_per_s=b * max_new / (ms / 1e3))
+        runs[name] = dict(
+            tokens=out, wall_ms=prefill_ms + decode_ms,
+            prefill_ms=prefill_ms, decode_ms_per_step=decode_ms / max_new,
+            decode_tokens_per_s=b * max_new / (decode_ms / 1e3),
+            tokens_per_s=b * max_new / ((prefill_ms + decode_ms) / 1e3))
     launches = _no_launches("generate")
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     row = {name: {k: v for k, v in r.items() if k != "tokens"}
            for name, r in runs.items()}
-    row.update(prefill_ms=prefill_ms, peak_gib=peak, batch=b, prompt=plen,
+    row.update(peak_gib=peak, batch=b, prompt=plen,
                max_new=max_new, max_len=max_len,
                cache_gib=cfg.num_layers * 2 * b * max_len * cfg.n_kv_heads
                * cfg.resolved_head_dim * 2 / 2**30)
@@ -2466,6 +2534,8 @@ def phase_generate(device: torch.device, smi: str) -> dict:
         raise AssertionError("generate: argmax agreement below the floor")
     row["profile"] = profile_dense_decode(params, cfg, prompt, max_len,
                                           "generate", smi)
+    row["profile_sampled"] = profile_dense_decode(
+        params, cfg, prompt, max_len, "generate", smi, temperature=0.8)
     del params, dense, paged, runs, greedy
     _free("generate", device)
 
@@ -2542,16 +2612,48 @@ def phase_generate_xlstm(device: torch.device, smi: str) -> dict:
     return row
 
 
+def _routed(fn, *args, **kwargs) -> tuple[object, list[torch.Tensor]]:
+    """``fn(*args, **kwargs)`` with the experts of every `moe.top_k` call
+    recorded -> (fn's result, one (tokens, k) tensor a call, in call
+    order, the tokens in their flat (batch, position) order)."""
+    inner, calls = moe_mod.top_k, []
+
+    def top_k(probs, k):
+        vals, idx = inner(probs, k)
+        calls.append(idx.reshape(-1, k))
+        return vals, idx
+    moe_mod.top_k = top_k
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        moe_mod.top_k = inner
+    return out, calls
+
+
+def _routing_flips(dec_calls: list[torch.Tensor],
+                   train_calls: list[torch.Tensor], b: int, s: int
+                   ) -> torch.Tensor:
+    """Where the decode loop (a call a MoE layer and position, each of b
+    tokens) and the forward (a call a MoE layer, of b * s tokens) chose
+    another set of top-k experts -> bool (MoE layers, b, s)."""
+    n_moe, k = len(train_calls), dec_calls[0].shape[-1]
+    dec = torch.stack(dec_calls).reshape(s, n_moe, b, k).permute(1, 2, 0, 3)
+    train = torch.stack(train_calls).reshape(n_moe, b, s, k)
+    return (dec.sort(-1).values != train.sort(-1).values).any(-1)
+
+
 def phase_generate_jamba(device: torch.device, smi: str) -> dict:
     """jamba-v0.1-52b at full width cut from 32 to 8 layers: one
     super-block of 7 mamba layers and 1 attention layer, 4 MoE layers of
     16 experts top-2 (d_ff 14,336), ~13.3 B params in bf16.  `generate`
     with the loop prefill on 2 prompts of 64 tokens, 16 new.  Checks
     (capacity factor 8, so the forward drops no token): the
-    teacher-forced `decode_step` logits against `forward_train`, in bf16
-    at the serve contract's mean and argmax floor, and in float32 at full
-    width (53 GB) at float32's limits; the decode state changed and every
-    output is finite."""
+    teacher-forced `decode_step` logits against `forward_train` in bf16,
+    at the serve contract on every position whose top-2 experts agree
+    between the two paths (the experts of both recorded), its mean and
+    argmax floor over all; then the same weights cast to float32 (53 GB)
+    at float32's limits; the decode state changed and every output is
+    finite."""
     _free("generate-jamba", device)
     cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
     t0 = time.perf_counter()
@@ -2586,49 +2688,86 @@ def phase_generate_jamba(device: torch.device, smi: str) -> dict:
         f"capacity buffer runs, so a step reads all the weights at "
         f"{PEAK_BYTES / 1e12} TB/s) on {smi}")
     wide = dataclasses.replace(cfg, capacity_factor=8.0)
-    state = model_mod.init_decode_state(wide, b, out.shape[1], device)
+    seq_len = out.shape[1]
+    state = model_mod.init_decode_state(wide, b, seq_len, device)
     fresh = tree_map(torch.clone, state)
-    dec, state = loop_logits(params, wide, out, out.shape[1], state)
+    (dec, state), dec_route = _routed(loop_logits, params, wide, out,
+                                      seq_len, state)
     with torch.inference_mode():
-        train, _ = model_mod.forward_train(params, {"tokens": out}, wide,
-                                           impl="plain")
-    # bf16: a token whose router scores differ by bf16 rounding between
-    # the two paths can take another expert, and its logits then move by
-    # tens of percent (the JAX package shows the same: 12% of the scale at
-    # jamba's smoke config cut to 8 layers, 1.4% without MoE): the mean
-    # and the argmax agreement are held, the max is reported
+        (train, _), train_route = _routed(
+            model_mod.forward_train, params, {"tokens": out}, wide,
+            impl="plain")
+    # bf16: the two paths round the router's input differently, so where
+    # a token's second and third expert lie close it can take another
+    # expert on one side, and its logits then move by tens of percent.
+    # The serve contract holds in full on every position whose top-2
+    # experts agree at every MoE layer; the mean and the argmax floor hold
+    # over all positions; the flipped positions are reported apart
+    flips = _routing_flips(dec_route, train_route, b, seq_len)
+    flipped = flips.any(0)                                    # (b, s)
+    scale = train.abs().max().item()
+    rel = ((dec - train).abs().amax(-1) / scale).cpu()         # (b, s)
+    earlier = (flipped.long().cumsum(-1) - flipped.long()).bool().cpu()
+    flipped = flipped.cpu()
+    over = [dict(row=i, pos=j, rel=rel[i, j].item(),
+                 flipped=bool(flipped[i, j]), earlier_flip=bool(earlier[i, j]))
+            for i, j in (rel > MAX_REL).nonzero().tolist()]
+    routing = dict(positions=b * seq_len, flipped=int(flipped.sum()),
+                   flips_by_moe_layer=flips.sum((1, 2)).tolist(),
+                   flipped_positions=[dict(row=i, pos=j, rel=rel[i, j].item())
+                                      for i, j in flipped.nonzero().tolist()],
+                   beyond_max_rel=over)
+    log("generate-jamba", f"bf16 routing, decode vs forward_train: "
+        f"{json.dumps(routing)}")
+    if 2 * int(flipped.sum()) > b * seq_len:
+        raise AssertionError("generate-jamba: the routing differs on more "
+                             "than half the positions")
+    agree = ~flipped.to(device)
+    row["routing_bf16"] = routing
     row["check_decode_vs_forward_train_bf16"] = _relative_check(
-        "generate-jamba", "bf16 decode_step vs forward_train (capacity "
-        "factor 8), 80 positions", dec, train, None, MEAN_REL)
-    agree = (dec.argmax(-1) == train.argmax(-1)).float().mean().item()
-    row["check_decode_vs_forward_train_bf16"]["argmax_agreement"] = agree
+        "generate-jamba", f"bf16 decode_step vs forward_train (capacity "
+        f"factor 8), the {int(agree.sum())} positions whose routing agrees",
+        dec[agree], train[agree], MAX_REL, MEAN_REL)
+    row["check_decode_vs_forward_train_bf16_all"] = _relative_check(
+        "generate-jamba", f"bf16 decode_step vs forward_train (capacity "
+        f"factor 8), all {b * seq_len} positions", dec, train, None,
+        MEAN_REL)
+    argmax = (dec.argmax(-1) == train.argmax(-1)).float().mean().item()
+    row["check_decode_vs_forward_train_bf16_all"]["argmax_agreement"] = argmax
     leaves = tree_leaves(state)
     unchanged = [i for i, (a, z) in enumerate(zip(tree_leaves(fresh), leaves))
                  if torch.equal(a, z)]
     finite = all(bool(torch.isfinite(x.float()).all()) for x in leaves)
     log("generate-jamba", f"decode state: {len(leaves)} leaves, unchanged "
-        f"{unchanged}, all finite {finite}; bf16 argmax agreement {agree} "
+        f"{unchanged}, all finite {finite}; bf16 argmax agreement {argmax} "
         f"(floor {MIN_ARGMAX_AGREEMENT})")
     if (unchanged or not finite or not torch.isfinite(dec).all()
-            or agree < MIN_ARGMAX_AGREEMENT):
+            or argmax < MIN_ARGMAX_AGREEMENT):
         raise AssertionError("generate-jamba: a state leaf did not change, "
                              "an output is not finite or the argmax "
                              "agreement is below the floor")
-    del params, state, fresh, dec, train
-    # float32 at full width (53 GB of weights, with the bf16 model freed):
-    # no routing flips, so the whole serve check holds at float32's limits
+    del state, fresh, dec, train
+    # float32 at full width: the same weights that generated, cast up one
+    # leaf at a time (53 GB; the bf16 copy shrinks as the float32 grows)
     _free("generate-jamba", device)
+    for leaf in tree_leaves(params):
+        if leaf.is_floating_point():
+            leaf.data = leaf.data.float()
     f32 = dataclasses.replace(wide, param_dtype="float32",
                               compute_dtype="float32")
-    params = model_mod.init_model(torch.Generator(device).manual_seed(12),
-                                  f32, device=device)
-    dec, _ = loop_logits(params, f32, out, out.shape[1])
+    (dec, _), dec_route = _routed(loop_logits, params, f32, out, seq_len)
     with torch.inference_mode():
-        train, _ = model_mod.forward_train(params, {"tokens": out}, f32,
-                                           impl="plain")
+        (train, _), train_route = _routed(
+            model_mod.forward_train, params, {"tokens": out}, f32,
+            impl="plain")
+    flips = _routing_flips(dec_route, train_route, b, seq_len)
+    row["routing_f32_flipped"] = int(flips.any(0).sum())
+    log("generate-jamba", f"float32 routing, decode vs forward_train: "
+        f"{row['routing_f32_flipped']} of {b * seq_len} positions flipped")
     row["check_decode_vs_forward_train_f32"] = _relative_check(
-        "generate-jamba", "float32 decode_step vs forward_train (capacity "
-        "factor 8), 80 positions", dec, train, F32_MAX_REL, F32_MEAN_REL)
+        "generate-jamba", f"float32 decode_step vs forward_train (capacity "
+        f"factor 8), all {b * seq_len} positions", dec, train, F32_MAX_REL,
+        F32_MEAN_REL)
     row["f32_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     del params, dec, train
     return row

@@ -47,32 +47,44 @@ from __future__ import annotations
 import numpy as np
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_PARITY = np.uint32(0x1BD11BDA)
+_PARITY = 0x1BD11BDA
+_M32 = 0xFFFFFFFF
 
 
-def _rotl(x: np.ndarray, r: int) -> np.ndarray:
-    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+def _threefry(key: tuple[int, int], x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011, as in
+    `jax._src.prng.threefry2x32`) over int64 numpy arrays or tensors that
+    hold uint32 counter words: Python operators only, each result masked
+    to 32 bits, so it runs unchanged on either and gives the same words."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
 
 
 def threefry2x32(key: tuple[int, int], x0: np.ndarray, x1: np.ndarray
                  ) -> tuple[np.ndarray, np.ndarray]:
-    """Threefry-2x32 with 20 rounds (Salmon et al. 2011, as in
-    `jax._src.prng.threefry2x32`) over uint32 counter words ``x0``, ``x1``."""
-    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = np.asarray(x0, np.uint32).copy()
-    x1 = np.asarray(x1, np.uint32).copy()
-    with np.errstate(over="ignore"):
-        x0 += ks[0]
-        x1 += ks[1]
-        for i in range(5):
-            for r in _ROTATIONS[i % 2]:
-                x0 += x1
-                x1 = _rotl(x1, r)
-                x1 ^= x0
-            x0 += ks[(i + 1) % 3]
-            x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x0, x1
+    """`_threefry` over uint32 counter words ``x0``, ``x1`` -> uint32."""
+    y0, y1 = _threefry(key, np.asarray(x0, np.int64),
+                       np.asarray(x1, np.int64))
+    return y0.astype(np.uint32), y1.astype(np.uint32)
+
+
+def _unit(bits):
+    """The [0, 1) float32 of ``jax.random.uniform`` from 32 random bits (a
+    uint32 array, or an int64 tensor holding uint32 words): the top 23
+    bits as the mantissa of a float in [1, 2), minus 1."""
+    m = (bits >> 9) | 0x3F800000
+    if isinstance(m, np.ndarray):
+        return m.astype(np.uint32).view(np.float32) - np.float32(1.0)
+    import torch
+    return m.int().view(torch.float32) - 1.0
 
 
 def prng_key(seed: int) -> tuple[int, int]:
@@ -106,8 +118,7 @@ def random_bits(key: tuple[int, int], n: int) -> np.ndarray:
 
 def uniform(key: tuple[int, int], n: int) -> np.ndarray:
     """``jax.random.uniform(key, (n,), jnp.float32)``: float32 in [0, 1)."""
-    bits = random_bits(key, n) >> np.uint32(9) | np.uint32(0x3F800000)
-    return bits.view(np.float32) - np.float32(1.0)
+    return _unit(random_bits(key, n))
 
 
 def randint(key: tuple[int, int], n: int, lo: int, hi: int) -> np.ndarray:
@@ -162,35 +173,18 @@ def normal(key: tuple[int, int], n: int) -> np.ndarray:
     return np.float32(np.sqrt(2)) * erf_inv(u)
 
 
-
-
 # ------------------------------------------------ bulk draws, in torch
 # `categorical` takes one draw per logit (~600 K a decode step at B = 4 and
-# vocab 151936), so `gumbel` computes where the logits live: the threefry
-# and bit tricks above over int64 tensors holding uint32 words, and XLA's
-# float32 log with each fused multiply-add as a float64 add of an exact
-# float32 product, rounded to float32 once.  The same bits on any device.
-_M32 = 0xFFFFFFFF
+# vocab 151936), so `gumbel` computes where the logits live: `_threefry`
+# and `_unit` over int64 tensors holding uint32 words, and XLA's float32
+# log with each fused multiply-add as a float64 add of an exact float32
+# product, rounded to float32 once.  The same bits on any device.
 # Cephes' logf polynomial in x - 1 on [sqrt(1/2), sqrt(2)), highest power
 # first, and ln 2 split into a short and a long part
 _LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
           -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
 _LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
-
-
-def _threefry_t(key: tuple[int, int], x0, x1):
-    """`threefry2x32` over int64 tensors of uint32 words."""
-    k0, k1 = int(key[0]), int(key[1])
-    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
-    x0, x1 = (x0 + ks[0]) & _M32, (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0, x1
 
 
 def _fma_t(a, b, c):
@@ -237,9 +231,8 @@ def gumbel(key: tuple[int, int], shape, device=None):
     import torch
     n = int(np.prod(shape))
     x1 = torch.arange(n, dtype=torch.int64, device=device)
-    y0, y1 = _threefry_t(key, torch.zeros_like(x1), x1)
-    bits = ((y0 ^ y1) >> 9) | 0x3F800000
-    u = bits.int().view(torch.float32) - 1.0
+    y0, y1 = _threefry(key, torch.zeros_like(x1), x1)
+    u = _unit(y0 ^ y1)
     tiny = float(np.finfo(np.float32).tiny)
     u = torch.clamp(u * float(np.float32(1.0) - np.float32(tiny)) + tiny,
                     min=tiny)

@@ -37,7 +37,8 @@ from repro_torch.serve import kv_cache as kvc
 
 NEG_INF = -1e30
 IMPLS = ("flash", "plain", "chunked", "auto")
-# the impls of the paged decode step and the sLSTM recurrence
+# the impls that the paged decode step, the serving engine and the
+# launcher accept (they have no chunked path)
 KERNEL_IMPLS = ("flash", "plain")
 CHUNK_FROM = 2048                 # "auto" runs `_sdpa_chunked` from here
 

@@ -194,7 +194,9 @@ def _slstm_cell(params: dict, cfg: ArchConfig, zx: torch.Tensor,
 
 def slstm_train(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 impl: str = "flash") -> torch.Tensor:
-    """x (B, L, d) -> (B, L, d) in the compute dtype."""
+    """x (B, L, d) -> (B, L, d) in the compute dtype.  "flash" runs the
+    sLSTM scan kernel; every other impl ("plain", "chunked", "auto") runs
+    the plain cell loop, as the JAX version's non-Pallas branch does."""
     check_impl(impl)
     d, dp, h = _dims(cfg)
     hd = dp // h
