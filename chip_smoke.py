@@ -71,6 +71,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``overlap="none"`` and ``"chunked"`` (4 chunks): the two u_k within one
    bf16 ulp of the mixing's operands, the chunked peak memory at most two
    chunk slabs above the unchunked, the event slots' seconds.
+10d. train-mesh -- qwen2-0.5b at full width, W = 4 (2 x 2, ring), tau 2,
+   q 2, 4 slots (slot 2 a subnet event, slot 4 a hub event) through K3 +
+   K4, under two_stage, ppermute, bf16 and dense: one process on the card,
+   then mesh (4, 1) -- four gloo ranks sharing the card, one worker each,
+   started by `launch.mesh.spawn` -- whose fleet rows and u_k must be the
+   one-process bits; seconds per local and event slot, each event's
+   collectives as host staging and gloo transfer, each rank's peak memory,
+   K3 / K4 launches summed over the ranks (gloo on one card, not NCCL).
 11. xlstm-kernels -- the sLSTM scan forward K7 (h and the four
    chunk-entering states) and backward K8 (dzx, dR, db, from K7's states)
    against their plain versions, each output held to its own scale, at
@@ -178,7 +186,9 @@ from repro_torch.kernels.profiling import graph_nodes  # noqa: E402
 from repro_torch.kernels.tolerance import (BWD_TOL, LSE_TOL, TOL,  # noqa: E402
                                            align_columns, ladder_error)
 from repro_torch.launch import harness as harness_mod  # noqa: E402
-from repro_torch.launch.train import TrainLoopConfig, run_training  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch.train import (TrainLoopConfig, fleet_digests,  # noqa: E402
+                                      run_training, train_rank)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
@@ -2258,6 +2268,112 @@ def phase_train_overlap(cfg, device: torch.device, smi: str) -> dict:
     return row
 
 
+# ------------------------------------------------------ the mesh path
+MESH_MIXINGS = ("two_stage", "ppermute", "bf16", "dense")
+MESH_RANKS = 4
+
+
+def _slot_summary(stats: list) -> dict:
+    """Seconds of the local and of the event slots, and each event's
+    collectives with their staging and transfer milliseconds."""
+    local = [s["seconds"] for s in stats if s["event"] == "local"]
+    events = [dict(event=s["event"], seconds=s["seconds"],
+                   collectives=s["collectives"], stage_ms=s["stage_s"] * 1e3,
+                   transfer_ms=s["transfer_s"] * 1e3)
+              for s in stats if s["event"] != "local"]
+    return dict(local_slot_seconds=local, events=events)
+
+
+def phase_train_mesh(device: torch.device, smi: str,
+                     backend: str = "gloo") -> dict:
+    """qwen2-0.5b at full width as W = 4 (2 x 2 on a ring, rates
+    1.0/0.8/1.0/0.6), tau 2, q 2, 4 slots of 4 x 128 tokens (slot 2 a subnet
+    event, slot 4 a hub event), through K3 + K4, under each mixing of
+    ``MESH_MIXINGS``: once in one process on the card, then on mesh (4, 1),
+    four ranks (one worker each; rank r on card r mod the card count), all
+    four mixings in one world.  Check: every worker row of every leaf of
+    the fleet and u_k are the one-process run's bits (SHA-256 of each row),
+    the u_k losses equal.  Logged per mixing: seconds per local and per
+    event slot, each event's collectives split into host staging and the
+    transfer, each rank's peak memory, K3 / K4 launches summed over the
+    ranks.  With one card and ``backend="gloo"`` (the script's run) the
+    four ranks share it and gloo moves every collective through host
+    memory: those are not NCCL's times across cards
+    (`tools/mesh_nccl.py` runs ``backend="nccl"`` on four cards)."""
+    phase = "train-mesh" if backend == "gloo" else f"train-mesh-{backend}"
+    where = (f"{backend}, {MESH_RANKS} ranks on "
+             f"{min(MESH_RANKS, torch.cuda.device_count())} card(s)"
+             + (", staged through host memory" if backend == "gloo" else ""))
+    cfg = get_config("qwen2-0.5b")
+    n_attn = _layers_of(cfg, "attn")
+    runs = [dict(mll=MLLConfig(**dict(TRAIN_MLL, mixing=m)),
+                 loop=_train_loop(steps=4, eval_every=4,
+                                  mesh=(MESH_RANKS, 1), profile_slots=True))
+            for m in MESH_MIXINGS]
+    single = {}
+    for name, run in zip(MESH_MIXINGS, runs):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        out = run_training(cfg, run["mll"], dataclasses.replace(
+            run["loop"], mesh=None), log=lambda *a: None)
+        single[name] = dict(
+            rows=fleet_digests(out["train_state"].params),
+            u=fleet_digests(tree_map(lambda x: x[None], out["avg_params"])),
+            history=out["history"], peak_gib=torch.cuda.max_memory_allocated(
+                device) / 2**30, **_slot_summary(out["slot_stats"]))
+        del out
+    _free(phase, device)
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn(train_rank, MESH_RANKS, cfg, runs,
+                           ship="digests", backend=backend, device="cuda",
+                           timeout=600)
+    world_s = time.perf_counter() - t0
+    rows, total = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    for k, name in enumerate(MESH_MIXINGS):
+        ref = single[name]
+        w = len(ref["rows"][0])
+        launches = {key: sum(r[k]["launches"][key] for r in ranks)
+                    for key in ("flash_attention", "flash_attention_bwd",
+                                "tc_flash_attention",
+                                "tc_flash_attention_bwd")}
+        want = {"flash_attention": n_attn * (w * 4 + MESH_RANKS),
+                "flash_attention_bwd": n_attn * w * 4}
+        for key, n in want.items():
+            if launches[key] != n or launches[f"tc_{key}"] != n:
+                raise AssertionError(f"{phase} {name}: {key} launches "
+                                     f"{launches}, expected {n}, all bf16")
+            total[key] += n
+        for r in ranks:
+            run = r[k]
+            lo, hi = run["rows"]
+            for leaf, (got, want_rows) in enumerate(zip(run["state"],
+                                                        ref["rows"])):
+                if got != want_rows[lo:hi]:
+                    raise AssertionError(f"{phase} {name}: rank rows "
+                                         f"{lo}:{hi} differ at leaf {leaf}")
+            if run["history"]["avg_loss"] != ref["history"]["avg_loss"]:
+                raise AssertionError(f"{phase} {name}: u_k loss "
+                                     f"{run['history']} != {ref['history']}")
+        if ranks[0][k]["u"] != ref["u"]:
+            raise AssertionError(f"{phase} {name}: u_k differs")
+        rows[name] = dict(
+            single_process=dict(
+                peak_gib=ref["peak_gib"],
+                local_slot_seconds=ref["local_slot_seconds"],
+                event_slot_seconds=[e["seconds"] for e in ref["events"]]),
+            ranks=[dict(rank=i, peak_gib=r[k]["peak_bytes"] / 2**30,
+                        run_training_s=r[k]["seconds"],
+                        **_slot_summary(r[k]["slot_stats"]))
+                   for i, r in enumerate(ranks)],
+            u_k_loss=ref["history"]["avg_loss"], launches=launches,
+            bit_identical=True)
+        log(phase, f"{name}: {json.dumps(rows[name])} ({where}) on {smi}")
+    TC_LAUNCHES[phase] = dict(total)
+    log(phase, f"world of {MESH_RANKS} ranks: {world_s:.1f} s for "
+        f"{len(MESH_MIXINGS)} runs, start-up included")
+    return dict(rows=rows, launches=total, world_seconds=world_s)
+
+
 # ------------------------------------------------------ offline generation
 # float32 decode against a float32 forward of the same model: the two round
 # in other orders through 12-28 layers (~1e-4 of the logits at most); a
@@ -2910,6 +3026,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     overlap = phase_train_overlap(cfg, device, smi)
     torch.cuda.empty_cache()
+    mesh = phase_train_mesh(device, smi)
+    torch.cuda.empty_cache()
 
     q, k, v, o, lse, do, kw = bwd_rec.call
     k4 = measure_bwd(timer, q, k, v, o, lse, do, kw["causal"], kw["window"],
@@ -2962,13 +3080,15 @@ def main() -> int:
              + group16_launches["flash_attention"]
              + train_launches["flash_attention"]
              + ladder["launches"]["flash_attention"]
-             + overlap["launches"]["flash_attention"] + sim_launches["K3"],
+             + overlap["launches"]["flash_attention"]
+             + mesh["launches"]["flash_attention"] + sim_launches["K3"],
              launches_by_path={
                  "serve": launches["flash_attention"],
                  "serve-group16": group16_launches["flash_attention"],
                  "train": train_launches["flash_attention"],
                  "train-ladder": ladder["launches"]["flash_attention"],
                  "train-overlap": overlap["launches"]["flash_attention"],
+                 "train-mesh": mesh["launches"]["flash_attention"],
                  "sim-qwen2": sim_launches["K3"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention"] for path, n in TC_LAUNCHES.items()
@@ -2993,11 +3113,13 @@ def main() -> int:
              launches=train_launches["flash_attention_bwd"]
              + ladder["launches"]["flash_attention_bwd"]
              + overlap["launches"]["flash_attention_bwd"]
+             + mesh["launches"]["flash_attention_bwd"]
              + sim_launches["K4"],
              launches_by_path={
                  "train": train_launches["flash_attention_bwd"],
                  "train-ladder": ladder["launches"]["flash_attention_bwd"],
                  "train-overlap": overlap["launches"]["flash_attention_bwd"],
+                 "train-mesh": mesh["launches"]["flash_attention_bwd"],
                  "sim-qwen2": sim_launches["K4"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention_bwd"]

@@ -1,5 +1,5 @@
 """MLL-SGD configuration and network construction (counterpart of
-`repro/core/mllsgd.py`, single device).
+`repro/core/mllsgd.py`).
 
 Every parameter leaf carries a leading **worker axis** of size W; the
 workers diverge between averaging rounds (paper Eq. 5).  The averaging
@@ -12,7 +12,9 @@ rounds are the mixing strategies of `repro_torch.core.protocol`
 Worker heterogeneity (Eq. 3) is a Bernoulli(p_i) gate drawn from the
 counter-based generator keyed on (seed, step) (`protocol.gate_sample`).
 The JAX package maps workers onto a TPU mesh (``granularity``); the port
-runs the fleet on one device, so only the subnet layout matters here.
+shards the fleet over the ``workers`` axis of a process mesh
+(`launch.mesh`, `launch.harness`) or runs it in one process, so only the
+subnet layout matters here.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Protocol engine: the paper's algorithm family as (mixing x inner-opt x
-schedule) -- counterpart of `repro/core/protocol.py`, single device.
+schedule) -- counterpart of `repro/core/protocol.py`.
 
 Every execution path drives the same three pluggable pieces:
 
@@ -18,9 +18,14 @@ Every execution path drives the same three pluggable pieces:
      frozen,
   3. the (tau, q) **schedule** choosing local / subnet / hub per tick.
 
-The ``*_spmd`` collective lowerings are not ported (ROADMAP.md Queue 1,
-"Multi-device execution"); ``spmd_capable`` keeps the reference's values,
-which `describe_mixing` prints.
+Multi-device execution: with the stacked (W, ...) fleet sharded over the
+``workers`` axis of a process mesh (`launch.mesh`; one `torch.distributed`
+rank per JAX device), the ``*_spmd`` methods lower each averaging round to
+the collective the JAX package lowers it to (`core.collectives`): the
+subnet mean to a grouped all-reduce over the sub-network's ranks, the hub
+stage to send / recv rolls along the workers axis, ``dense`` to an
+all-gather and a local product into the rank's rows.  ``spmd_capable``
+marks the strategies that have them (``[mesh]`` in `describe_mixing`).
 
 Differences from the JAX package, by design:
 
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch import interop, resolve_device
-from repro_torch.core import packing, prng
+from repro_torch.core import collectives, packing, prng
 from repro_torch.optim import optimizers as optim_mod
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -249,6 +254,211 @@ def hub_average_ppermute(stacked: Tree, st: MLLState,
     return _grouped(stacked, st, mix_dtype, hub)
 
 
+# ------------------------------------------------------------ SPMD lowering
+@dataclasses.dataclass(frozen=True)
+class SpmdAxis:
+    """The mesh axis the worker dim is sharded over, from one rank's view.
+
+    The mesh harness (`launch.harness.TrainHarness(mesh=...)`) gives each
+    rank the (W/size, ...) rows of the stacked state; strategies lower
+    their averaging rounds to collectives among the axis' ranks through the
+    ``*_spmd`` methods below.  ``index`` is the rank's coordinate on the
+    axis, ``ranks`` the global ranks along it by coordinate, and ``groups``
+    {b: process group of the rank's contiguous block of b shards} (b =
+    ``size`` for the whole axis), made once by `launch.mesh.make_mesh`.
+
+    The ``data`` mesh axis (when present) replicates compute, as in the JAX
+    package: sharding the within-worker batch would sum partial losses and
+    change the float32 reduction order."""
+    name: str          # mesh axis name the worker dim is sharded over
+    size: int          # number of shards on that axis
+    num_workers: int   # global W
+    index: int = 0
+    ranks: tuple[int, ...] = ()
+    groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    def __post_init__(self):
+        if self.size < 1 or self.num_workers % self.size:
+            raise ValueError(
+                f"workers mesh axis of size {self.size} must divide "
+                f"W={self.num_workers}")
+
+    @property
+    def per_shard(self) -> int:
+        return self.num_workers // self.size
+
+    def offset(self) -> int:
+        """Global index of this shard's first worker row."""
+        return self.index * self.per_shard
+
+    def group(self, block: int | None = None):
+        """The group of this rank's block of ``block`` shards (default:
+        the whole axis)."""
+        return self.groups[self.size if block is None else block]
+
+
+def spmd_capable_mixing() -> tuple[str, ...]:
+    """Registered strategies with a collective (SPMD) lowering."""
+    return tuple(sorted(n for n, c in MIXING_REGISTRY.items()
+                        if c.spmd_capable))
+
+
+def grouped_spmd_layout(st: MLLState, spmd: SpmdAxis) -> int:
+    """Shards per sub-network for the grouped collective lowerings.
+
+    Returns 0 when the whole worker axis lives on one shard (the round is
+    the single-device math), otherwise the number of shards each
+    sub-network spans.  The all-reduce / roll lowerings need
+    subnet-ALIGNED shards -- every shard entirely inside one sub-network --
+    so the subnet mean is one grouped all-reduce and the hub stage one
+    send / recv per roll."""
+    d, nd = _grouped_dims(st)
+    ps = spmd.per_shard
+    if spmd.size == 1:
+        return 0
+    if nd % ps:
+        raise ValueError(
+            f"grouped SPMD mixing needs subnet-aligned shards: {ps} workers "
+            f"per shard must divide Nd={nd} (W={spmd.num_workers} over "
+            f"{spmd.size} shards, D={d} sub-networks); use mixing='dense' "
+            "or a workers axis that divides the subnet size")
+    return nd // ps
+
+
+def _einsum_operator_spmd(t: torch.Tensor, local: Tree,
+                          mix_dtype: str | None, spmd: SpmdAxis, *,
+                          packed: bool = False) -> Tree:
+    """SPMD lowering of `_einsum_operator`, in place: all-gather the
+    contracted worker axis, contract into this shard's output rows only.
+    Each output row's contraction runs over the same gathered operand with
+    the same length, so the rows equal the single-device product's.  One
+    all-gather per leaf, or with ``packed`` (an all-float32 fleet where
+    `packing.flat_paths_enabled`, the single-device event operator's flat
+    path) one of the packed (W/size, sum C) buffer."""
+    lo, hi = spmd.offset(), spmd.offset() + spmd.per_shard
+    group = spmd.group()
+    if packed and mix_dtype in (None, "float32"):
+        spec = packing.pack_spec(local)
+        full = collectives.all_gather_rows(packing.pack(local, spec), group)
+        tl = t.to(full.device, torch.float32)[:, lo:hi]
+        mixed = packing.unpack(torch.einsum("ij,ic->jc", tl, full), spec)
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(local), tree_leaves(mixed)):
+                dst.copy_(src)
+        return local
+
+    def mix(x):
+        xm = x.to(getattr(torch, mix_dtype)) if mix_dtype else x
+        full = collectives.all_gather_rows(xm, group)
+        tl = t.to(xm.device, xm.dtype)[:, lo:hi]
+        return torch.einsum("ij,i...->j...", tl, full).to(x.dtype)
+    return _mix_in_place(local, mix)
+
+
+def _grouped_spmd_z(x: torch.Tensor, st: MLLState, spmd: SpmdAxis, sps: int,
+                    mix_dtype: str | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """This shard's sub-network mean (no worker axis): the weighted
+    per-worker products of the shard's rows summed, then a grouped
+    all-reduce over the sub-network's ``sps`` shards.  Equal bit for bit
+    to `_product_mean` when the sub-network's workers lie on at most two
+    shards, one each or all on one (the add orders coincide, and a + b is
+    exact in either order); over three or more shards the library's add
+    order may differ from the serial sum in the last bits."""
+    xm = x.to(getattr(torch, mix_dtype)) if mix_dtype else x
+    lo = spmd.offset()
+    vl = st.v_weights.to(xm.dtype)[lo:lo + spmd.per_shard]
+    part = (_bcast(vl, xm.dim()) * xm).sum(dim=0)
+    if sps > 1:
+        part = collectives.all_reduce_sum(part, spmd.group(sps))
+    return xm, part
+
+
+def subnet_average_two_stage_spmd(local: Tree, st: MLLState, spmd: SpmdAxis,
+                                  mix_dtype: str | None = None) -> Tree:
+    """`subnet_average_two_stage` on a mesh: the sub-network mean is a
+    grouped all-reduce over its shards, broadcast back over this shard's
+    worker rows."""
+    sps = grouped_spmd_layout(st, spmd)
+    if sps == 0:                    # whole worker axis on this shard
+        return subnet_average_two_stage(local, st, mix_dtype)
+
+    def mix(x):
+        xm, z = _grouped_spmd_z(x, st, spmd, sps, mix_dtype)
+        return z[None].expand(xm.shape).to(x.dtype)
+    return _mix_in_place(local, mix)
+
+
+def _hub_spmd_rolls(local: Tree, st: MLLState, spmd: SpmdAxis,
+                    mix_dtype: str | None, terms) -> Tree:
+    """Shared hub-stage skeleton: the subnet mean by grouped all-reduce,
+    then ``terms(dtype, z, roll)`` summed over the rolls the strategy
+    emits.  Roll o receives the hub model of the sub-network o further on:
+    shard s sends to shard (s - o*sps) mod size and receives from
+    (s + o*sps) mod size (the JAX ``ppermute`` pairs)."""
+    sps = grouped_spmd_layout(st, spmd)
+    assert sps > 0, "callers handle the single-shard case"
+    s, n = spmd.index, spmd.size
+
+    def roll(z, o):
+        if not o:
+            return z
+        return collectives.sendrecv(z, spmd.ranks[(s - o * sps) % n],
+                                    spmd.ranks[(s + o * sps) % n],
+                                    spmd.group())
+
+    def mix(x):
+        xm, z = _grouped_spmd_z(x, st, spmd, sps, mix_dtype)
+        y = None
+        for term in terms(xm.dtype, z, roll):
+            y = term if y is None else y + term
+        return y[None].expand(xm.shape).to(x.dtype)
+    return _mix_in_place(local, mix)
+
+
+def _receiver_weights(st: MLLState, spmd: SpmdAxis, dtype: torch.dtype
+                      ) -> list[torch.Tensor]:
+    """H[(e + o) mod D, e] for this shard's sub-network e, o = 0..D-1, as
+    0-d tensors of ``dtype`` (the `_roll_mix` weights)."""
+    d, _ = _grouped_dims(st)
+    e = spmd.index // grouped_spmd_layout(st, spmd)
+    h = st.h.to(dtype)
+    return [h[(e + o) % d, e] for o in range(d)]
+
+
+def hub_average_two_stage_spmd(local: Tree, st: MLLState, spmd: SpmdAxis,
+                               mix_dtype: str | None = None) -> Tree:
+    """`hub_average_two_stage` on a mesh: the hub models' rolls as send /
+    recv, each weighted by the receiver's H column entry (general H) --
+    add for add the `_roll_mix` accumulation."""
+    if grouped_spmd_layout(st, spmd) == 0:
+        return hub_average_two_stage(local, st, mix_dtype)
+
+    def terms(dtype, z, roll):
+        for o, w in enumerate(_receiver_weights(st, spmd, dtype)):
+            yield w * roll(z, o)
+    return _hub_spmd_rolls(local, st, spmd, mix_dtype, terms)
+
+
+def hub_average_ppermute_spmd(local: Tree, st: MLLState, spmd: SpmdAxis,
+                              mix_dtype: str | None = None) -> Tree:
+    """`hub_average_ppermute` on a mesh: one send / recv per NONZERO
+    circulant coefficient (wire traffic scales with the hub graph's
+    degree); zero-coefficient rolls are skipped as in the single-device
+    loop."""
+    if grouped_spmd_layout(st, spmd) == 0:
+        return hub_average_ppermute(local, st, mix_dtype)
+    coeffs = _circulant_coeffs(st)
+
+    def terms(dtype, z, roll):
+        for o, c in enumerate(coeffs):
+            if abs(float(c)) < 1e-12:
+                continue                     # non-neighbour: no traffic
+            yield torch.tensor(float(c), dtype=dtype).item() * roll(z, o)
+    return _hub_spmd_rolls(local, st, spmd, mix_dtype, terms)
+
+
 def _f32(c) -> float:
     """A coefficient as the float32 the JAX package multiplies by."""
     return float(np.float32(c))
@@ -393,6 +603,21 @@ def hub_average_bf16(stacked: Tree, st: MLLState) -> Tree:
             y = term if y is None else y + term
         return y[:, None].expand(xg.shape).reshape(x.shape).to(x.dtype)
     return _mix_in_place(stacked, mix)
+
+
+def hub_average_bf16_spmd(local: Tree, st: MLLState, spmd: SpmdAxis) -> Tree:
+    """`hub_average_bf16` on a mesh: the rolls carry the BF16 wire buffers
+    (2 bytes per element on the wire), widened to float32 on arrival; the
+    own hub model (o = 0) stays float32 -- add for add the single-device
+    accumulation, which is in float32 whatever the params' dtype."""
+    if grouped_spmd_layout(st, spmd) == 0:
+        return hub_average_bf16(local, st)
+
+    def terms(dtype, z, roll):
+        wire = z.to(torch.bfloat16)
+        for o, w in enumerate(_receiver_weights(st, spmd, torch.float32)):
+            yield w * (z if o == 0 else roll(wire, o).float())
+    return _hub_spmd_rolls(local, st, spmd, "float32", terms)
 
 
 def _topk_count(cols: int, ratio: float) -> int:
@@ -558,8 +783,8 @@ class MixingStrategy:
     strategies implement ``subnet`` and ``hub``; the engine always calls the
     ``*_with_state`` forms so a stateful strategy threads its state."""
     name: str = "?"
-    # whether the JAX package lowers the strategy to mesh collectives (the
-    # port runs on one device and has no such lowering yet)
+    # strategies with a collective lowering (the ``*_spmd`` methods) set
+    # this True; the mesh harness refuses meshes for the rest up front
     spmd_capable: bool = False
     # one-line wire-format description (``--mixing list``)
     wire_format: str = "f32 hub models (4 B/elem; mix_dtype overrides)"
@@ -582,10 +807,12 @@ class MixingStrategy:
         return _hub_edges(st) * self.hub_payload_bytes(st, spec)
 
     def subnet(self, stacked: Tree, st: MLLState) -> Tree:
-        raise NotImplementedError
+        raise NotImplementedError(f"{type(self).__name__} defines no subnet "
+                                  "round")
 
     def hub(self, stacked: Tree, st: MLLState) -> Tree:
-        raise NotImplementedError
+        raise NotImplementedError(f"{type(self).__name__} defines no hub "
+                                  "round")
 
     def init_state(self, stacked_params: Tree) -> Tree:
         return ()
@@ -595,6 +822,30 @@ class MixingStrategy:
 
     def hub_with_state(self, stacked, st, state):
         return self.hub(stacked, st), state
+
+    # ---- SPMD lowering: inputs and outputs are this rank's (W/size, ...)
+    # worker rows; collectives run among the ranks of ``spmd``
+    def validate_spmd(self, st: MLLState, spmd: SpmdAxis) -> None:
+        """Raise (when the harness is built, before any slot runs) when
+        this strategy cannot lower the given mesh layout to collectives."""
+        if not self.spmd_capable:
+            raise ValueError(
+                f"mixing={self.name!r} has no SPMD collective lowering; "
+                f"strategies that run on a mesh: {spmd_capable_mixing()}")
+
+    def subnet_spmd(self, local: Tree, st: MLLState, spmd: SpmdAxis) -> Tree:
+        raise NotImplementedError(
+            f"mixing={self.name!r} has no SPMD subnet lowering")
+
+    def hub_spmd(self, local: Tree, st: MLLState, spmd: SpmdAxis) -> Tree:
+        raise NotImplementedError(
+            f"mixing={self.name!r} has no SPMD hub lowering")
+
+    def subnet_spmd_with_state(self, local, st, state, spmd):
+        return self.subnet_spmd(local, st, spmd), state
+
+    def hub_spmd_with_state(self, local, st, state, spmd):
+        return self.hub_spmd(local, st, spmd), state
 
 
 MIXING_REGISTRY: dict[str, type[MixingStrategy]] = {}
@@ -626,8 +877,9 @@ def available_mixing() -> tuple[str, ...]:
 
 
 def describe_mixing() -> str:
-    """One line per registered strategy: name, whether the JAX package
-    runs it on a mesh, wire format (the text of ``--mixing list``)."""
+    """One line per registered strategy: name, whether it runs on a mesh
+    (``[mesh]``: it has collective lowerings) or only on one device
+    (``[vmap]``), wire format (the text of ``--mixing list``)."""
     width = max(len(n) for n in MIXING_REGISTRY)
     lines = []
     for name in available_mixing():
@@ -641,7 +893,8 @@ def describe_mixing() -> str:
 @register("dense")
 class DenseMixing(MixingStrategy):
     """The paper's matrices verbatim: X V and X Z as W x W einsums; works
-    for unequal-size sub-networks."""
+    for unequal-size sub-networks.  On a mesh: all-gather the worker axis,
+    contract into this rank's output rows only."""
     spmd_capable = True
     wire_format = "f32 W x W contraction; full-precision models on every edge"
 
@@ -651,10 +904,19 @@ class DenseMixing(MixingStrategy):
     def hub(self, stacked, st):
         return hub_average_dense(stacked, st, self.mix_dtype)
 
+    def subnet_spmd(self, local, st, spmd):
+        return _einsum_operator_spmd(st.v_op, local, self.mix_dtype, spmd)
+
+    def hub_spmd(self, local, st, spmd):
+        return _einsum_operator_spmd(st.z_op, local, self.mix_dtype, spmd)
+
 
 @register("two_stage")
 class TwoStageMixing(MixingStrategy):
-    """Structured V/Z: grouped subnet mean + small D x D hub mix as rolls."""
+    """Structured V/Z: grouped subnet mean + small D x D hub mix as rolls.
+    On a mesh: the subnet mean is a grouped all-reduce over the
+    sub-network's ranks, the hub stage receiver-weighted send / recv
+    rolls."""
     spmd_capable = True
     wire_format = "f32 hub models as rolls (4 B/elem; mix_dtype overrides)"
 
@@ -664,26 +926,55 @@ class TwoStageMixing(MixingStrategy):
     def hub(self, stacked, st):
         return hub_average_two_stage(stacked, st, self.mix_dtype)
 
+    def validate_spmd(self, st, spmd):
+        super().validate_spmd(st, spmd)
+        grouped_spmd_layout(st, spmd)      # raises on misaligned shards
+
+    def subnet_spmd(self, local, st, spmd):
+        return subnet_average_two_stage_spmd(local, st, spmd, self.mix_dtype)
+
+    def hub_spmd(self, local, st, spmd):
+        return hub_average_two_stage_spmd(local, st, spmd, self.mix_dtype)
+
 
 @register("ppermute")
 class PPermuteMixing(TwoStageMixing):
     """Circulant-H hub mixing as coefficient-weighted rolls; subnet rounds
-    stay two-stage."""
+    stay two-stage.  On a mesh: one send / recv per nonzero circulant
+    coefficient."""
     wire_format = "f32 hub models, one permute per nonzero circulant coeff"
 
     def hub(self, stacked, st):
         return hub_average_ppermute(stacked, st, self.mix_dtype)
 
+    def validate_spmd(self, st, spmd):
+        super().validate_spmd(st, spmd)
+        _circulant_coeffs(st)              # raises on non-circulant H
+
+    def hub_spmd(self, local, st, spmd):
+        return hub_average_ppermute_spmd(local, st, spmd, self.mix_dtype)
+
 
 @register("int8")
 class Int8Mixing(TwoStageMixing):
     """Circulant-H hub wire of int8-quantized hub models (biased).
-    ``mix_dtype`` applies to the subnet rounds only."""
+    ``mix_dtype`` applies to the subnet rounds only.  Not spmd-capable
+    (though it inherits `TwoStageMixing`): the int8 wire needs typed
+    collectives that carry the int8 buffers, not the float32 rolls the
+    inherited lowering would send."""
     spmd_capable = False
     wire_format = "int8 values + one f32 scale per hub model per leaf (biased)"
 
     def hub(self, stacked, st):
         return hub_average_int8(stacked, st)
+
+    def subnet_spmd(self, local, st, spmd):
+        raise NotImplementedError(
+            f"mixing={self.name!r} has no SPMD lowering (compressed wire "
+            f"format needs typed collectives); strategies that run on a "
+            f"mesh: {spmd_capable_mixing()}")
+
+    hub_spmd = subnet_spmd
 
     def hub_payload_bytes(self, st, spec):
         return sum(s.size + 4 for s in spec.slots)
@@ -726,12 +1017,15 @@ class Int4EFMixing(Int8EFMixing):
 class Bf16Mixing(TwoStageMixing):
     """bf16 hub wire: neighbour hub models arrive as bf16 (half the bytes
     of f32) and widen on arrival; the own hub model stays f32.
-    Stateless."""
+    Stateless.  On a mesh the send / recv rolls carry the bf16 buffers."""
     spmd_capable = True
     wire_format = "bf16 hub models (2 B/elem), stateless"
 
     def hub(self, stacked, st):
         return hub_average_bf16(stacked, st)
+
+    def hub_spmd(self, local, st, spmd):
+        return hub_average_bf16_spmd(local, st, spmd)
 
     def hub_payload_bytes(self, st, spec):
         return 2 * spec.total_cols

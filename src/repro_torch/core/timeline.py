@@ -486,13 +486,25 @@ class NeighborReadyGossipPolicy(ReadinessPolicy):
 
 
 # ---------------------------------------------------------------- execution
-def apply_event_operator(stacked: Tree, op: torch.Tensor) -> Tree:
+def apply_event_operator(stacked: Tree, op: torch.Tensor,
+                         spmd: protocol.SpmdAxis | None = None) -> Tree:
     """Per-event dense (W, W) operator with the engine's dtype semantics:
     all-f32 trees take `simulator.apply_operator` (a new tree; the packed
     flat path where `packing.flat_paths_enabled`); other trees mix each
     leaf in its OWN dtype, in place (an f32 product would promote bf16
     params).  The one implementation the event executor and the production
-    `train_step.mll_harness_step` share."""
+    `train_step.mll_harness_step` share.
+
+    On a mesh (``spmd`` of more than one shard: ``stacked`` holds this
+    rank's rows) the product is an all-gather and a local product into the
+    rank's output rows (`protocol._einsum_operator_spmd`, in place), packed
+    where the single-device path packs: the same per-row arithmetic, so the
+    same bits."""
+    if spmd is not None and spmd.size > 1:
+        packed = packing.all_f32(stacked) and packing.flat_paths_enabled(
+            tree_leaves(stacked)[0].device)
+        return protocol._einsum_operator_spmd(op, stacked, None, spmd,
+                                              packed=packed)
     if packing.all_f32(stacked):
         return apply_operator(stacked, op)
     return protocol._einsum_operator(op, stacked, None)

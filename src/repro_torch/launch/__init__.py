@@ -1,2 +1,2 @@
 """The production trainer: the plan-driven harness and its CLI
-(counterpart of `repro/launch/`, single device)."""
+and the process meshes it runs on (counterpart of `repro/launch/`)."""

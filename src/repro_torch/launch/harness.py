@@ -1,5 +1,5 @@
-"""Plan-driven production trainer (counterpart of `repro/launch/harness.py`,
-single device).
+"""Plan-driven production trainer (counterpart of
+`repro/launch/harness.py`).
 
 A `TimelinePlan` compiled by any registered readiness policy (``barrier`` /
 ``deadline`` / ``gossip``) is the single execution schedule:
@@ -26,9 +26,21 @@ for bit) and event-trace export (`timeline.plan_trace`).
 
 ``overlap="chunked"`` mixes each event's dense (W, W) operator over the
 packed columns one chunk at a time (`timeline.chunked_apply_operator`, in
-place), as the JAX package's chunked path does.  Device meshes
-(``mesh=``) are not ported yet (ROADMAP.md Queue 1) and raise
-`NotImplementedError`.
+place), as the JAX package's chunked path does.
+
+With ``mesh=`` (a `launch.mesh.Mesh` carrying a ``workers`` axis) every
+rank holds and trains only its (W/size, ...) rows of the fleet, and each
+mixing event lowers to the strategy's collectives among the ranks
+(`core.protocol`'s ``*_spmd`` methods): the paper's communication structure
+across process boundaries.  Every rank executes the same plan.  At eval
+and checkpoint boundaries the rows are gathered, so u_k, the history and
+the checkpoints are computed exactly as on one device and are the same on
+every rank; rank 0 writes the checkpoints, which stay readable by a
+single-process run and by the JAX package.  The full state trajectory
+(params, optimizer state, mixing state), every u_k and every loss equal the
+single-device run's bit for bit wherever each sub-network's workers lie on
+at most two ranks (`protocol._grouped_spmd_z`).  The ``data`` axis
+replicates compute.
 """
 from __future__ import annotations
 
@@ -40,10 +52,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import protocol, timeline
+from repro_torch.core import collectives, protocol, timeline
 from repro_torch.core.mllsgd import MLLConfig, MLLState
 from repro_torch.core.simulator import weighted_average
 from repro_torch.data.pipeline import LMBatcher, rng_state
+from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.attention import check_impl
 from repro_torch.train import checkpoint
 from repro_torch.train.train_step import loss_fn, mll_harness_step
@@ -102,15 +115,83 @@ def resolve_measured_network(network, calibration: timeline.RateCalibration):
 
 
 # ----------------------------------------------------------------- harness
+def _sharded(spmd: protocol.SpmdAxis | None) -> bool:
+    return spmd is not None and spmd.size > 1
+
+
+def shard_train_state(state: protocol.MLLTrainState,
+                      spmd: protocol.SpmdAxis | None
+                      ) -> protocol.MLLTrainState:
+    """This rank's rows of a full-width train state, each leaf a tensor of
+    its own (the rank mixes it in place)."""
+    if not _sharded(spmd):
+        return state
+    lo = spmd.offset()
+
+    def take(x):
+        return x[lo:lo + spmd.per_shard].clone()
+    return state._replace(params=tree_map(take, state.params),
+                          opt_state=tree_map(take, state.opt_state),
+                          mix_state=tree_map(take, state.mix_state))
+
+
+def gather_rows(tree: Tree, spmd: protocol.SpmdAxis | None) -> Tree:
+    """The full-width tree from every rank's rows (an all-gather per leaf
+    over the workers axis; the same on every rank)."""
+    if not _sharded(spmd):
+        return tree
+    return tree_map(lambda x: collectives.all_gather_rows(x, spmd.group()),
+                    tree)
+
+
+def gather_train_state(state: protocol.MLLTrainState,
+                       spmd: protocol.SpmdAxis | None
+                       ) -> protocol.MLLTrainState:
+    return state._replace(params=gather_rows(state.params, spmd),
+                          opt_state=gather_rows(state.opt_state, spmd),
+                          mix_state=gather_rows(state.mix_state, spmd))
+
+
+def spmd_axis(mesh, num_workers: int) -> protocol.SpmdAxis:
+    """The ``workers`` axis of ``mesh`` (a `launch.mesh.Mesh`) as this
+    rank's `protocol.SpmdAxis` over a fleet of ``num_workers``."""
+    sizes = mesh_axis_sizes(mesh)
+    if "workers" not in sizes:
+        raise ValueError(
+            f"mesh axes {sizes} carry no 'workers' axis -- the SPMD "
+            "harness shards the worker fleet on it (--mesh W,D)")
+    if num_workers % sizes["workers"]:
+        raise ValueError(
+            f"mesh workers axis ({sizes['workers']}) must divide the fleet "
+            f"W={num_workers} -- fix the mesh shape")
+    return protocol.SpmdAxis(
+        "workers", sizes["workers"], num_workers,
+        index=mesh.coordinate[mesh.axis_names.index("workers")],
+        ranks=mesh.line("workers"), groups=mesh.axis_groups("workers"))
+
+
 class TrainHarness:
-    """Plan executor for the production (transformer) trainer on one
-    device.  ``gate_mode`` is fixed per plan: ``"bernoulli"`` multiplies the
-    plan's active mask into the counter-based gate draw (``deadline`` = the
-    lock-step trainer), ``"forced"`` uses the mask as the gate."""
+    """Plan executor for the production (transformer) trainer, on one
+    device or on one rank of a mesh.  ``gate_mode`` is fixed per plan:
+    ``"bernoulli"`` multiplies the plan's active mask into the
+    counter-based gate draw (``deadline`` = the lock-step trainer),
+    ``"forced"`` uses the mask as the gate.
+
+    With ``mesh=`` (see the module docstring) the state this harness runs
+    is the rank's rows (`shard_train_state`), and so are the batches and
+    masks it hands each slot.  Bit-identity contract as in the JAX
+    package: the state trajectory and every u_k and loss equal the
+    single-device run's.
+
+    ``slot_stats`` (a list) records each slot it runs: the event
+    (``"local"``, ``"subnet"``, ``"hub"`` or ``"op"``), its seconds
+    between device synchronises, the collectives it made
+    (`core.collectives.COUNTS`) and their staging and transfer seconds."""
 
     def __init__(self, cfg: ArchConfig, mll: MLLConfig, st: MLLState, *,
                  gate_mode: str, impl: str = "flash", mesh=None,
-                 overlap: str = "none", overlap_chunks: int = 4):
+                 overlap: str = "none", overlap_chunks: int = 4,
+                 slot_stats: list | None = None):
         if gate_mode not in ("bernoulli", "forced"):
             raise ValueError(f"unknown gate_mode {gate_mode!r}")
         check_impl(impl)
@@ -132,25 +213,53 @@ class TrainHarness:
             if overlap_chunks < 1:
                 raise ValueError(f"overlap_chunks must be >= 1, "
                                  f"got {overlap_chunks}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (SPMD execution) is not ported yet (ROADMAP.md "
-                "Queue 1, 'Multi-device execution'); the port's harness runs "
-                "the fleet on one device")
         self.cfg, self.mll, self.st, self.gate_mode = cfg, mll, st, gate_mode
         self.impl = impl
         self.overlap, self.overlap_chunks = overlap, overlap_chunks
         self.num_workers = int(st.rates.shape[0])
         self.device = st.v_op.device
+        self.mesh, self.spmd = mesh, None
+        self.rows = slice(0, self.num_workers)
+        self.slot_stats = slot_stats
+        if mesh is not None:
+            self.spmd = spmd_axis(mesh, self.num_workers)
+            # fail at construction, not at the first event
+            protocol.resolve_mixing(mll).validate_spmd(st, self.spmd)
+            lo = self.spmd.offset()
+            self.rows = slice(lo, lo + self.spmd.per_shard)
 
     def _batch(self, batcher: LMBatcher, rng: np.random.Generator) -> dict:
-        return {k: v.to(self.device) for k, v in batcher.sample(rng).items()}
+        return {k: v[self.rows].to(self.device)
+                for k, v in batcher.sample(rng).items()}
 
     def step(self, state, batch, active, **kw):
-        return mll_harness_step(state, batch, active, self.cfg, self.mll,
-                                self.st, gate_mode=self.gate_mode,
-                                impl=self.impl, overlap=self.overlap,
-                                overlap_chunks=self.overlap_chunks, **kw)
+        """One slot over this harness' rows (``active`` is the plan's full
+        (W,) mask)."""
+        def run():
+            return mll_harness_step(
+                state, batch, active[self.rows], self.cfg, self.mll, self.st,
+                gate_mode=self.gate_mode, impl=self.impl, spmd=self.spmd,
+                overlap=self.overlap, overlap_chunks=self.overlap_chunks,
+                **kw)
+        if self.slot_stats is None:
+            return run()
+        counts, secs = collectives.COUNTS.copy(), dict(collectives.SECONDS)
+        collectives.set_timing(True)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        try:
+            out = run()
+            _sync(self.device)
+        finally:
+            collectives.set_timing(False)
+        event = "op" if kw.get("op") is not None else \
+            ("local", "subnet", "hub")[kw.get("phase", protocol.PHASE_LOCAL)]
+        self.slot_stats.append(dict(
+            event=event, seconds=time.perf_counter() - t0,
+            collectives=dict(collectives.COUNTS - counts),
+            stage_s=collectives.SECONDS["stage"] - secs["stage"],
+            transfer_s=collectives.SECONDS["transfer"] - secs["transfer"]))
+        return out
 
     def run_span(self, state: protocol.MLLTrainState,
                  plan: timeline.TimelinePlan, batcher: LMBatcher,
@@ -237,25 +346,35 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
              last_worker_loss: list | None = None,
              run_config: dict | None = None, impl: str = "flash",
              mesh=None, overlap: str = "none", overlap_chunks: int = 4,
+             slot_stats: list | None = None,
              log: Callable = print) -> HarnessRun:
     """Drive a `TrainHarness` over the whole plan.
 
     The loop surfaces at eval/checkpoint boundaries only; u_k = X a is
     computed once per boundary and shared by eval and checkpoints.
     ``stop_slot`` executes only slots [start_slot, stop_slot) of the same
-    plan and checkpoints there (the kill point of a resumable run)."""
+    plan and checkpoints there (the kill point of a resumable run).
+
+    With ``mesh``, every rank of it calls this with its own rows of the
+    state (`shard_train_state`) and the same everything else; the returned
+    ``train_state`` holds the rank's rows (`gather_train_state` joins
+    them), the history and u_k are the same on every rank."""
     harness = TrainHarness(cfg, mll, st, gate_mode=plan.gate_mode, impl=impl,
                            mesh=mesh, overlap=overlap,
-                           overlap_chunks=overlap_chunks)
-    device = harness.device
+                           overlap_chunks=overlap_chunks,
+                           slot_stats=slot_stats)
+    device, spmd = harness.device, harness.spmd
+    writer = mesh is None or mesh.rank == 0
     a = torch.as_tensor(np.asarray(network.a), dtype=torch.float32,
                         device=device)
     history = {"step": [], "loss": [], "avg_loss": []}
-    # the most recent per-worker loss; restored on resume so an eval inside
-    # an all-idle straggler tail records what the uninterrupted run would
+    # the most recent per-worker loss (this rank's rows); restored on
+    # resume so an eval inside an all-idle straggler tail records what the
+    # uninterrupted run would
     last_metrics = (None if last_worker_loss is None
                     else {"loss": torch.tensor(last_worker_loss,
-                                               dtype=torch.float32)})
+                                               dtype=torch.float32)
+                          [harness.rows]})
     t0 = time.time()
     done = start_slot
     final_u = None
@@ -266,12 +385,13 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
         done = b
         u = None
         if (eval_every and done % eval_every == 0) or done == plan.slots:
-            u = weighted_average(train_state.params, a)
+            u = weighted_average(gather_rows(train_state.params, spmd), a)
             eb = batcher.sample(rng)
             one = {k: v[0].to(device) for k, v in eb.items()}
             with torch.no_grad():
                 avg_loss = float(loss_fn(u, one, cfg, impl=impl)[0])
-            wl = (float(last_metrics["loss"].float().mean())
+            wl = (float(gather_rows(last_metrics["loss"], spmd).float()
+                        .mean())
                   if last_metrics is not None else float("nan"))
             history["step"].append(done)
             history["loss"].append(wl)
@@ -282,26 +402,36 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
                      and done % checkpoint_every == 0) or \
                     (checkpoint_dir and done == stop)
         if want_ckpt:
+            full = gather_train_state(train_state, spmd)
             if u is None:
-                u = weighted_average(train_state.params, a)
-            checkpoint.save(checkpoint_dir, u, step=done)
+                u = weighted_average(full.params, a)
             wl = (None if last_metrics is None else
-                  [float(x) for x in last_metrics["loss"].tolist()])
-            checkpoint.save_state(
-                checkpoint_dir, train_state, slot=done,
-                rng_state=rng_state(rng),
-                extra={"policy": policy, "rate_model": rate_model,
-                       "last_worker_loss": wl, "mesh": None,
-                       "plan_config": run_config if run_config is not None
-                       else plan_config(mll, network, plan, policy,
-                                        rate_model)})
+                  [float(x) for x in
+                   gather_rows(last_metrics["loss"], spmd).tolist()])
+            if writer:
+                checkpoint.save(checkpoint_dir, u, step=done)
+                checkpoint.save_state(
+                    checkpoint_dir, full, slot=done,
+                    rng_state=rng_state(rng),
+                    extra={"policy": policy, "rate_model": rate_model,
+                           "last_worker_loss": wl,
+                           # informational only -- outside the resume
+                           # guard's plan_config, so checkpoints stay
+                           # portable across mesh shapes
+                           "mesh": (mesh_axis_sizes(mesh) if mesh is not None
+                                    else None),
+                           "plan_config": run_config
+                           if run_config is not None
+                           else plan_config(mll, network, plan, policy,
+                                            rate_model)})
+            del full
         if done == plan.slots:
             final_u = u
         del u
     u = final_u if final_u is not None \
-        else weighted_average(train_state.params, a)
+        else weighted_average(gather_rows(train_state.params, spmd), a)
     out_trace = None
-    if trace_path:
+    if trace_path and writer:
         meta = {"policy": policy, "rate_model": rate_model,
                 "arch": cfg.name, "source": "launch.harness"}
         if calibration is not None:

@@ -14,9 +14,15 @@ One production MLL-SGD slot is:
 With ``impl="flash"`` attention trains through the hand-written kernels
 (forward K3, backward K4; `repro_torch.kernels.ops.flash_attention`), and
 so does the sLSTM recurrence (forward K7, backward K8;
-`repro_torch.kernels.ops.slstm_scan`).
-``microbatch > 1`` (gradient accumulation) is not ported yet (ROADMAP.md
-Queue 1).
+`repro_torch.kernels.ops.slstm_scan`).  ``microbatch > 1`` accumulates
+each worker's gradient over that many chunks of its batch.
+
+`mll_transformer_step` is the stateless tick (plain gated SGD + the mixing
+strategy with fresh state), `mll_transformer_state_step` carries a full
+`MLLTrainState`, and `mll_harness_step` is the plan-driven slot the
+production harness runs, on one device or, on a mesh, on one rank's rows
+of the fleet.  No collective crosses the worker axis in a local slot:
+that is the paper's communication saving.
 """
 from __future__ import annotations
 
@@ -27,8 +33,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import protocol
-from repro_torch.core.mllsgd import MLLConfig, MLLState
-from repro_torch.core.protocol import MLLTrainState
+from repro_torch.core.mllsgd import MLLConfig, MLLState, mll_train_step
+from repro_torch.core.protocol import MLLTrainState, protocol_step
 from repro_torch.core.timeline import (apply_event_operator,
                                        chunked_apply_operator)
 from repro_torch.models import model as model_mod
@@ -63,32 +69,71 @@ def _worker(tree: Tree, i: int) -> Tree:
     return tree_map(lambda x: x[i], tree)
 
 
+def _chunks(wbatch: dict, k: int) -> list[dict]:
+    """One worker's batch as ``k`` gradient-accumulation chunks of equal
+    size, in order (``positions`` carries a leading streams dim: its batch
+    is axis 1)."""
+    def cut(name, x, j):
+        axis = 1 if name == "positions" else 0
+        n = x.shape[axis] // k
+        return x.narrow(axis, j * n, n)
+    return [{name: cut(name, x, j) for name, x in wbatch.items()}
+            for j in range(k)]
+
+
 def per_worker_grads(params: Tree, batch: dict, cfg: ArchConfig, *,
-                     impl: str = "flash", microbatch: int = 1
-                     ) -> tuple[Tree, dict]:
+                     impl: str = "flash", microbatch: int = 1,
+                     accum_dtype: str = "float32") -> tuple[Tree, dict]:
     """value_and_grad per worker over the leading worker axis of params and
-    batch.  -> (stacked grads in the params' dtypes, {"loss", "ce", "aux"}
-    each (W,) float32)."""
-    if microbatch != 1:
-        raise NotImplementedError(
-            "microbatch > 1 (gradient accumulation) is not ported yet "
-            "(ROADMAP.md Queue 1)")
-    grads = tree_map(torch.empty_like, params)
+    batch.  -> (stacked grads, {"loss", "ce", "aux"} each (W,) float32).
+
+    ``microbatch`` > 1 splits each worker's batch into that many chunks and
+    accumulates their gradients in ``accum_dtype`` (the JAX package's
+    ``lax.scan``: zeros, + each chunk's gradient in order, times
+    1/microbatch; loss, ce and aux averaged alike); the grads are then in
+    ``accum_dtype``, else in the params' dtypes."""
+    if microbatch > 1:
+        b = batch["labels"].shape[1]
+        if b % microbatch:
+            raise ValueError(f"batch {b} not divisible by microbatch "
+                             f"{microbatch}")
+        acc = getattr(torch, accum_dtype)
+        grads = tree_map(lambda p: torch.empty(p.shape, dtype=acc,
+                                               device=p.device), params)
+    else:
+        grads = tree_map(torch.empty_like, params)
     w = tree_leaves(params)[0].shape[0]
     rows = []
     for i in range(w):
         wp = tree_map(lambda x: x[i].detach().requires_grad_(), params)
-        loss, m = loss_fn(wp, _worker(batch, i), cfg, impl=impl)
-        # a leaf the loss does not read (the token table of a model fed
-        # frame embeddings) gets a zero gradient, as under jax.grad
-        g = torch.autograd.grad(loss, tree_leaves(wp), allow_unused=True,
-                                materialize_grads=True)
-        with torch.no_grad():
-            for dst, src in zip(tree_leaves(_worker(grads, i)), g):
-                dst.copy_(src)
-        rows.append(torch.stack([loss.detach(), m["ce"].detach(),
-                                 m["aux"].detach()]).float())
+        chunks = (_chunks(_worker(batch, i), microbatch) if microbatch > 1
+                  else [_worker(batch, i)])
+        total = None
+        for j, chunk in enumerate(chunks):
+            loss, m = loss_fn(wp, chunk, cfg, impl=impl)
+            # a leaf the loss does not read (the token table of a model fed
+            # frame embeddings) gets a zero gradient, as under jax.grad
+            g = torch.autograd.grad(loss, tree_leaves(wp), allow_unused=True,
+                                    materialize_grads=True)
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves(_worker(grads, i)), g):
+                    if microbatch == 1:
+                        dst.copy_(src)
+                    elif j == 0:
+                        dst.copy_(src.to(dst.dtype))
+                    else:
+                        dst.add_(src.to(dst.dtype))
+            row = torch.stack([loss.detach(), m["ce"].detach(),
+                               m["aux"].detach()]).float()
+            total = row if total is None else total + row
+        rows.append(total)
     table = torch.stack(rows)
+    if microbatch > 1:
+        inv = 1.0 / microbatch
+        with torch.no_grad():
+            for x in tree_leaves(grads):
+                x.mul_(inv)
+        table = table * inv
     return grads, {"loss": table[:, 0], "ce": table[:, 1], "aux": table[:, 2]}
 
 
@@ -106,13 +151,48 @@ def per_worker_losses(params: Tree, batch: dict, cfg: ArchConfig, *,
     return {"loss": table[:, 0], "ce": table[:, 1], "aux": table[:, 2]}
 
 
+def mll_transformer_step(stacked_params: Tree, batch: dict, step: int,
+                         cfg: ArchConfig, mll: MLLConfig, st: MLLState, *,
+                         impl: str = "flash", microbatch: int = 1,
+                         static_phase: int | None = None
+                         ) -> tuple[Tree, dict]:
+    """One production MLL-SGD tick over the whole fleet, stateless: plain
+    gated SGD, then the mixing strategy with fresh per-round state
+    (`core.mllsgd.mll_train_step`).  ``step`` is the 1-based tick; the
+    params are updated in place."""
+    grads, metrics = per_worker_grads(stacked_params, batch, cfg, impl=impl,
+                                      microbatch=microbatch,
+                                      accum_dtype=mll.accum_dtype)
+    stacked = mll_train_step(stacked_params, grads, step, mll, st,
+                             static_phase=static_phase)
+    return stacked, metrics
+
+
+def mll_transformer_state_step(train_state: MLLTrainState, batch: dict,
+                               cfg: ArchConfig, mll: MLLConfig, st: MLLState,
+                               *, impl: str = "flash", microbatch: int = 1,
+                               static_phase: int | None = None
+                               ) -> tuple[MLLTrainState, dict]:
+    """One production protocol tick carrying a full `MLLTrainState`: the
+    inner optimizer's per-worker state and the mixing state thread through
+    (`core.protocol.protocol_step`); the tick lives in
+    ``train_state.step``."""
+    grads, metrics = per_worker_grads(train_state.params, batch, cfg,
+                                      impl=impl, microbatch=microbatch,
+                                      accum_dtype=mll.accum_dtype)
+    return protocol_step(train_state, grads, mll, st,
+                         static_phase=static_phase), metrics
+
+
 def mll_harness_step(train_state: MLLTrainState, batch: dict,
                      active, cfg: ArchConfig, mll: MLLConfig,
                      st: MLLState, *, gate_mode: str = "bernoulli",
                      phase: int = protocol.PHASE_LOCAL,
                      op: torch.Tensor | None = None,
                      compute_grads: bool = True, impl: str = "flash",
-                     microbatch: int = 1, overlap: str = "none",
+                     microbatch: int = 1,
+                     spmd: protocol.SpmdAxis | None = None,
+                     overlap: str = "none",
                      overlap_chunks: int = 4) -> tuple[MLLTrainState, dict]:
     """One PLAN-DRIVEN slot: the protocol tick with the gate and the mixing
     event decided host-side by a `core.timeline` readiness policy.
@@ -134,6 +214,13 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
         structured strategies are the JAX package's documented
         reduction-order change: equal to ``overlap="none"`` to float32
         tolerance, not bit for bit.
+      * On a mesh (``spmd`` of more than one shard) the step sees only this
+        rank's (W/size, ...) rows of state, batch and ``active``.  The
+        Bernoulli gate is drawn at FULL width and then sliced (the
+        counter-based draw depends on the shape), so every layout gates as
+        the single-device path does; mixing events lower to the strategy's
+        collectives (``*_spmd_with_state``, `timeline.apply_event_operator`
+        with ``spmd``), and a local slot makes none.
 
     The params and optimizer state of ``train_state`` are updated in place
     (`core.protocol`); the returned state holds the same tensors."""
@@ -143,13 +230,20 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
         raise ValueError(f"unknown overlap {overlap!r}; "
                          "expected none|chunked")
     step = int(train_state.step) + 1
+    sharded = spmd is not None and spmd.size > 1
     params, opt_state = train_state.params, train_state.opt_state
     if compute_grads:
         grads, metrics = per_worker_grads(params, batch, cfg, impl=impl,
-                                          microbatch=microbatch)
+                                          microbatch=microbatch,
+                                          accum_dtype=mll.accum_dtype)
         act = torch.as_tensor(np.asarray(active), dtype=st.rates.dtype)
-        theta = (protocol.gate_sample(mll.seed, step, st.rates) * act
-                 if gate_mode == "bernoulli" else act)
+        if gate_mode == "bernoulli":
+            theta = protocol.gate_sample(mll.seed, step, st.rates)
+            if sharded:
+                theta = theta[spmd.offset():spmd.offset() + spmd.per_shard]
+            theta = theta * act
+        else:
+            theta = act
         params, opt_state = protocol.gated_inner_update(
             protocol.resolve_inner_optimizer(mll), params, opt_state, grads,
             theta)
@@ -161,17 +255,21 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
     if op is not None:
         params = (chunked_apply_operator(params, op, overlap_chunks,
                                          out=params) if chunked
-                  else apply_event_operator(params, op))
+                  else apply_event_operator(params, op, spmd=spmd))
     elif chunked and phase != protocol.PHASE_LOCAL:
         op_mat = st.v_op if phase == protocol.PHASE_SUBNET else st.z_op
         params = chunked_apply_operator(params, op_mat, overlap_chunks,
                                         out=params)
-    elif phase == protocol.PHASE_SUBNET:
-        params, mix_state = protocol.resolve_mixing(mll).subnet_with_state(
-            params, st, mix_state)
-    elif phase == protocol.PHASE_HUB:
-        params, mix_state = protocol.resolve_mixing(mll).hub_with_state(
-            params, st, mix_state)
+    elif phase != protocol.PHASE_LOCAL:
+        strategy = protocol.resolve_mixing(mll)
+        hub = phase == protocol.PHASE_HUB
+        if sharded:
+            fn = (strategy.hub_spmd_with_state if hub
+                  else strategy.subnet_spmd_with_state)
+            params, mix_state = fn(params, st, mix_state, spmd)
+        else:
+            fn = strategy.hub_with_state if hub else strategy.subnet_with_state
+            params, mix_state = fn(params, st, mix_state)
     return MLLTrainState(params, opt_state, mix_state,
                          torch.tensor(step, dtype=torch.int32)), metrics
 

@@ -360,6 +360,45 @@ def test_cuda_harness_slot_trains_through_k3_and_k4(cuda_device):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.cuda
+def test_cuda_mesh_two_gloo_ranks_equal_one_process(cuda_device):
+    """Two gloo ranks sharing the card (mesh (2, 1), two workers each,
+    qwen3-1.7b's smoke config in bf16, two_stage, 4 slots through K3 / K4)
+    equal one process on the card bit for bit: params, u_k and u_k's
+    loss."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.mllsgd import MLLConfig
+    from repro_torch.launch import mesh, train
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_smoke_config("qwen3-1.7b")
+    mll = MLLConfig(tau=1, q=2, eta=0.05, hub_topology="ring",
+                    mixing="two_stage", worker_rates=(1.0, 0.8, 1.0, 0.6))
+
+    def loop(shape):
+        return train.TrainLoopConfig(steps=4, eval_every=4, seq_len=64,
+                                     batch_per_worker=2,
+                                     tokens_per_worker=4096, impl="flash",
+                                     mesh=shape)
+    want = train.run_training(cfg, mll, loop(None), log=lambda *a: None)
+    torch.cuda.empty_cache()
+    ranks = mesh.spawn(train.train_rank, 2, cfg,
+                       [dict(mll=mll, loop=loop((2, 1)))], backend="gloo",
+                       device="cuda", timeout=300)
+    for r in ranks:
+        run = r[0]
+        lo, hi = run["rows"]
+        for a, b in zip(tree_leaves(run["state"].params),
+                        tree_leaves(want["train_state"].params), strict=True):
+            assert torch.equal(a, b[lo:hi].cpu())
+        assert run["history"]["avg_loss"] == want["history"]["avg_loss"]
+        assert run["launches"]["flash_attention_bwd"] == \
+            cfg.num_layers * (hi - lo) * 4
+    for a, b in zip(tree_leaves(ranks[0][0]["u"]),
+                    tree_leaves(want["avg_params"]), strict=True):
+        assert torch.equal(a, b.cpu())
+
+
 # ------------------------------------------------------ fused update + mix
 def _mix_inputs(device, w, c, dtype, seed=0):
     g = torch.Generator(device).manual_seed(seed)

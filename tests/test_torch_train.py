@@ -45,6 +45,7 @@ from repro_torch.core import timeline as ttl
 from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import harness as tharness
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as ttrain
 from repro_torch.models import model as tmodel
 from repro_torch.serve import engine as tengine
@@ -350,9 +351,11 @@ def test_measure_worker_rates_shape_and_skew(monkeypatch):
 def test_harness_guards():
     net = tmll.build_network(tmll.MLLConfig(), 2, 2)
     st = tmll.build_state(tmll.MLLConfig(), net, device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # a mesh must carry the axis the fleet is sharded on (JAX's message)
+    with pytest.raises(ValueError, match="no 'workers' axis"):
         tharness.TrainHarness(TCFG, tmll.MLLConfig(), st,
-                              gate_mode="bernoulli", mesh=object())
+                              gate_mode="bernoulli",
+                              mesh=tmesh.Mesh((4, 1), ("model", "data")))
     # the chunked overlap's guards raise where the JAX package's raise
     with pytest.raises(ValueError, match="ONE device"):
         tharness.TrainHarness(TCFG, tmll.MLLConfig(), st,
@@ -364,8 +367,9 @@ def test_harness_guards():
     with pytest.raises(ValueError, match="unknown impl"):
         tharness.TrainHarness(TCFG, tmll.MLLConfig(), st,
                               gate_mode="bernoulli", impl="xla")
-    with pytest.raises(NotImplementedError, match="microbatch"):
-        tts.per_worker_grads({}, {}, TCFG, microbatch=2)
+    with pytest.raises(ValueError, match="not divisible by microbatch 2"):
+        tts.per_worker_grads({}, {"labels": torch.zeros(4, 3, 8)}, TCFG,
+                             microbatch=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.run_training(TCFG, tmll.MLLConfig(),
