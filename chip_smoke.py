@@ -79,6 +79,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    one-process bits; seconds per local and event slot, each event's
    collectives as host staging and gloo transfer, each rank's peak memory,
    K3 / K4 launches summed over the ranks (gloo on one card, not NCCL).
+10e. remat -- qwen3-1.7b at full width, one worker's forward and backward
+   on 1 x 4,096 tokens (train_4k's sequence) through K3 / K4 under
+   ``remat`` none, full and dots: ms, peak memory, launches (K3 twice a
+   layer under full and dots, the recomputation); the loss and gradients
+   of full and dots equal none's bit for bit (a leaf that is not
+   deterministic between two runs of none is named and held to phase 8's
+   limits); one harness slot of phase 7's cell under remat="full".
+10f. dryrun -- `launch.dryrun.run_one` on this host (no JAX) for
+   (qwen3-1.7b, train_4k, local), (qwen3-1.7b, decode_32k) and
+   (xlstm-125m, train_4k, local): the ``OK`` line with the H100 roofline
+   terms; the cost counter's FLOPs and bytes of phase 10e's step on the
+   card equal those of the same step on ``meta``, exactly; the mfu of
+   phase 7's local slot (model FLOPs over its seconds times 989e12).
 11. xlstm-kernels -- the sLSTM scan forward K7 (h and the four
    chunk-entering states) and backward K8 (dzx, dR, db, from K7's states)
    against their plain versions, each output held to its own scale, at
@@ -172,12 +185,13 @@ from repro_torch.configs.registry import get_config, get_smoke_config  # noqa: E
 from repro_torch.core import baselines, packing, prng, protocol  # noqa: E402
 from repro_torch.core import timeline as ttl  # noqa: E402
 from repro_torch.core.hierarchy import MultiLevelNetwork  # noqa: E402
-from repro_torch.core.mllsgd import MLLConfig, build_state  # noqa: E402
+from repro_torch.core.mllsgd import (MLLConfig, build_network,  # noqa: E402
+                                     build_state)
 from repro_torch.core.simulator import (SimConfig, init_sim_carry,  # noqa: E402
                                         replicate, simulate, to_device,
                                         weighted_average)
-from repro_torch.data.pipeline import (make_classification,  # noqa: E402
-                                       make_token_stream)
+from repro_torch.data.pipeline import (LMBatcher,  # noqa: E402
+                                       make_classification, make_token_stream)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import hier_mix as hm  # noqa: E402
@@ -185,6 +199,8 @@ from repro_torch.kernels import slstm_scan as ss  # noqa: E402
 from repro_torch.kernels.profiling import graph_nodes  # noqa: E402
 from repro_torch.kernels.tolerance import (BWD_TOL, LSE_TOL, TOL,  # noqa: E402
                                            align_columns, ladder_error)
+from repro_torch.launch import cost_analysis  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import harness as harness_mod  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch.train import (TrainLoopConfig, fleet_digests,  # noqa: E402
@@ -203,9 +219,10 @@ from repro_torch.train.train_step import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.train.train_step import per_worker_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel call
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel call,
+# from the one place that owns them
+PEAK_FLOPS = cost_analysis.PEAK
+PEAK_BYTES = cost_analysis.HBM_BW
 # served logits, flash vs plain path, after 28 bf16 layers (phase 5): the
 # two paths round attention to bf16 at other places, a noise of ~1% of the
 # logits; a wrong kernel (head, position, mask) moves them by ~100%.  With
@@ -373,14 +390,6 @@ def ptxas_report(log_text: str) -> dict:
 
 
 # ---------------------------------------------------------- K3 measurement
-def fwd_live_pairs(t: int, s: int, window: int) -> int:
-    """(query, key) pairs that causal + window masking leaves live."""
-    i = np.arange(t)
-    hi = np.minimum(i, s - 1) + 1
-    lo = np.maximum(0, i - window + 1) if window > 0 else 0
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float,
                 causal: bool = True) -> dict:
     """K3 against its plain version on (q, k, v): error, device time with
@@ -390,12 +399,9 @@ def measure_fwd(timer: Timer, q, k, v, window: int, softcap: float,
     want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
     err = max(_close(o, want_o, TOL[q.dtype]),
               _close(lse, want_lse, LSE_TOL))
-    b, t, h, hd = q.shape
-    es = q.element_size()
-    bytes_ = es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-    live = (fwd_live_pairs(t, k.shape[1], window) if causal
-            else t * k.shape[1])
-    bound_ms, bound_by = _bound(bytes_, 4 * hd * h * b * live, q.dtype)
+    t, h = q.shape[1:3]
+    flops, bytes_ = ops.attention_fwd_work(q, k, causal=causal, window=window)
+    bound_ms, bound_by = _bound(bytes_, flops, q.dtype)
     backends = {}
     if softcap == 0.0:     # SDPA has no softcap; GQA expanded outside the call
         group = h // k.shape[2]
@@ -813,13 +819,7 @@ def measure_bwd(timer: Timer, q, k, v, o, lse, do, causal: bool, window: int,
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("K4 gave other bits on a second run")
     errs = [_close_scaled(g, w, BWD_TOL[q.dtype]) for g, w in zip(got, want)]
-    b, t, h, hd = q.shape
-    es = q.element_size()
-    # q, o, do, k, v and lse read once; dq, dk, dv written once
-    bytes_ = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    # five products of hd per live pair: s, dp, dq, dk, dv
-    flops = 10 * hd * h * b * (fwd_live_pairs(t, k.shape[1], window)
-                               if causal else t * k.shape[1])
+    flops, bytes_ = ops.attention_bwd_work(q, k, causal=causal, window=window)
     bound_ms, bound_by = _bound(bytes_, flops, q.dtype)
     backends = {}
     if softcap == 0.0 and window == 0:
@@ -973,6 +973,7 @@ def phase_train(cfg, device: torch.device, smi: str, *, phase: str = "train",
             hist["loss"]).all():
         raise AssertionError(f"non-finite loss history {hist}")
     secs = clock.seconds
+    out["slot_seconds"] = list(secs)
     seq_tokens = loop.batch_per_worker * loop.seq_len
     counts = out["train_state"].opt_state["counts"].tolist()
     steady = secs[1:]
@@ -1239,12 +1240,6 @@ def measure_slstm(timer: Timer, zx, r, b, dh, block_b: int, chunk: int,
     bwd = [_close_scaled(got[0], want[0], tol),
            _close_scaled(got[1], want[1], f32),
            _close_scaled(got[2], want[2], f32)]
-    bsz, t, nh, hd4 = zx.shape
-    es = zx.element_size()
-    bound_bytes = 4 * sum(x.numel() for x in bounds)
-    rb_bytes = 4 * (r.numel() + b.numel())
-    # the recurrent products: 2 B T H hd 4hd float32 operations a pass
-    flops = 2 * bsz * t * nh * (hd4 // 4) * hd4
     k7 = {"max_abs_err": max(e for e, _ in fwd),
           "rel_err": max(x for _, x in fwd),
           "max_abs_out": [x.abs().max().item() for x in (want_h,) + want_bounds],
@@ -1259,13 +1254,10 @@ def measure_slstm(timer: Timer, zx, r, b, dh, block_b: int, chunk: int,
         k["cluster"] = {key: plan[key] for key in (
             "cluster", "resident_rows", "smem_bytes", "units")}
     if timed:
-        # K7: zx, R, b read; h and the bounds written
-        b7 = _bound(es * (zx.numel() + h.numel()) + rb_bytes + bound_bytes,
-                    flops, torch.float32)
-        # K8: zx, dh, R, b, bounds read; dzx, dR, db written; the forward
-        # recomputed, dh = dz R^T and dR = h^T dz
-        b8 = _bound(es * (2 * zx.numel() + dh.numel()) + 2 * rb_bytes
-                    + bound_bytes, 3 * flops, torch.float32)
+        f7, by7 = ops.slstm_fwd_work(zx, r, b, residuals=True, **kw)
+        f8, by8 = ops.slstm_bwd_work(zx, r, b, **kw)
+        b7 = _bound(by7, f7, torch.float32)
+        b8 = _bound(by8, f8, torch.float32)
         k7.update(ms=timer.ms(lambda: ops.slstm_scan_fwd_res(zx, r, b, **kw)),
                   plain_ms=timer.ms(lambda: ref.slstm_scan_fwd_res_ref(
                       zx, r, b, **kw), reps=3),
@@ -2381,6 +2373,210 @@ def phase_train_mesh(device: torch.device, smi: str,
 F32_MAX_REL, F32_MEAN_REL = 1e-2, 1e-3
 
 
+# ------------------------------------------------- remat and the dry run
+REMAT_TOKENS = 4096                 # train_4k's sequence length
+REMATS = ("none", "full", "dots")
+
+
+def _remat_grads(params: dict, batch: dict, cfg, remat: str
+                 ) -> tuple[torch.Tensor, tuple]:
+    """One worker's loss and gradients (every leaf) under ``remat``."""
+    loss, _ = train_loss_fn(params, batch, cfg, impl="flash", remat=remat)
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(params))
+
+
+def _remat_inputs(cfg, device) -> tuple[dict, dict]:
+    """Random full-width params (seeded, gradients on) and 1 x 4,096
+    tokens, on ``device`` (``meta``: the same step's stand-ins)."""
+    if device.type == "meta":
+        params = model_mod.param_skeleton(cfg)
+    else:
+        params = model_mod.init_model(torch.Generator(device).manual_seed(11),
+                                      cfg, device=device)
+    params = tree_map(lambda x: x.requires_grad_(), params)
+    toks = torch.randint(1, cfg.vocab_size, (1, REMAT_TOKENS + 1),
+                         generator=torch.Generator().manual_seed(4))
+    return params, {"tokens": toks[:, :-1].to(device),
+                    "labels": toks[:, 1:].to(device)}
+
+
+def _counted(fn, *args) -> dict:
+    """``fn(*args)`` under a `cost_analysis.CostCounter` -> its count."""
+    with cost_analysis.CostCounter() as counter:
+        fn(*args)
+    c = counter.costs
+    return {"flops": c.flops, "bytes": c.bytes, "dot_flops": c.dot_flops,
+            "kernels": {k: dict(v) for k, v in c.kernels.items()},
+            "by_op": {k: list(v) for k, v in counter.by_op.items()}}
+
+
+def phase_remat(cfg, device: torch.device, smi: str) -> dict:
+    """qwen3-1.7b at full width (28 layers, d_model 2048, bf16), one
+    worker's forward and backward on 1 x 4,096 tokens through K3 / K4
+    under remat none / full / dots: ms, peak memory above what was held
+    before the step, K3 and K4 launches (all bf16 on the tensor cores).
+    The loss and every gradient of full and dots equal none's bit for bit;
+    a leaf whose gradient is not deterministic (it differs between two
+    runs of none) is named and held to the flash-vs-plain limits instead.
+    Then one harness slot of phase train's cell (W = 4, 4 x 128 tokens a
+    worker, two_stage) under remat="full".  -> the launches and each
+    mode's count on the card (`cost_analysis.CostCounter`), for phase
+    dryrun."""
+    phase = "remat"
+    params, batch = _remat_inputs(cfg, device)
+    names = []
+    interop.map_with_keys(lambda k, b, x: names.append(
+        k if b is None else f"{k}[{b}]"), params)
+    _remat_grads(params, batch, cfg, "none")                  # warm
+    torch.cuda.synchronize()
+    ref_loss, ref_grads = _remat_grads(params, batch, cfg, "none")
+    again_loss, again = _remat_grads(params, batch, cfg, "none")
+    nondet = [i for i, (a, b) in enumerate(zip(ref_grads, again))
+              if not torch.equal(a, b)]
+    if not torch.equal(ref_loss, again_loss):
+        raise AssertionError("two runs of remat='none' gave other losses")
+    del again
+    log(phase, "leaves whose gradient differs between two runs of "
+        f"remat='none' (not deterministic): {[names[i] for i in nondet]}")
+    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0},
+           "card": {}}
+    n = _layers_of(cfg, "attn")
+    for remat in REMATS:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        loss, grads = _remat_grads(params, batch, cfg, remat)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+        launches = {"flash_attention": ops.flash_attention.launches,
+                    "flash_attention_bwd": ops.flash_attention_bwd.launches}
+        check_tensor_cores(f"{phase}-{remat}")
+        want = {"flash_attention": n * (1 if remat == "none" else 2),
+                "flash_attention_bwd": n}
+        if launches != want:
+            raise AssertionError(f"remat {remat}: launches {launches}, "
+                                 f"expected {want}")
+        for k in launches:
+            out["launches"][k] += launches[k]
+        differ = [i for i, (a, b) in enumerate(zip(grads, ref_grads))
+                  if not torch.equal(a, b)]
+        bad = [names[i] for i in differ if i not in nondet]
+        if not torch.equal(loss, ref_loss) or bad:
+            raise AssertionError(f"remat {remat}: loss {loss.item()} vs "
+                                 f"{ref_loss.item()}; gradients not bit "
+                                 f"for bit: {bad}")
+        rel = _rel_errors([grads[i].float() for i in nondet],
+                          [ref_grads[i].float() for i in nondet])
+        if rel and (max(rel) > 0.25 or float(np.median(rel)) > 0.05):
+            raise AssertionError(f"remat {remat}: non-deterministic leaves "
+                                 f"beyond the flash-vs-plain limits {rel}")
+        log(phase, f"{cfg.name} ({cfg.num_layers} layers, {cfg.compute_dtype})"
+            f", one worker, 1 x {REMAT_TOKENS} tokens, remat={remat}: "
+            f"{ms:.1f} ms forward + backward, peak {peak:.3f} GiB above the "
+            f"{held / 2**30:.3f} GiB held; launches {launches}; loss "
+            f"{loss.item()}; {len(grads) - len(differ)} of {len(grads)} "
+            f"leaves bit for bit with none, {len(differ)} non-deterministic "
+            f"leaves within the flash-vs-plain limits (relative errors "
+            f"{[round(r, 6) for r in rel]}) on {smi}")
+        del grads
+        out["card"][remat] = _counted(_remat_grads, params, batch, cfg,
+                                      remat)
+    del ref_grads
+    # one harness slot of phase train's cell under remat="full"
+    mll = MLLConfig(**TRAIN_MLL)
+    network = build_network(dataclasses.replace(
+        mll, granularity="worker_per_data"), 2, 2)
+    st = build_state(mll, network, device=device)
+    w = network.num_workers
+    state = protocol.init_train_state(replicate(
+        tree_map(lambda x: x.detach(), params), w), cfg=mll)
+    del params
+    loop = _train_loop()
+    slot = {k: v.to(device) for k, v in LMBatcher(make_token_stream(
+        w, loop.tokens_per_worker, vocab_size=cfg.vocab_size, seed=0),
+        loop.seq_len, loop.batch_per_worker).sample(
+            np.random.default_rng(0)).items()}
+    for remat in ("none", "full"):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state, metrics = harness_mod.mll_harness_step(
+            state, slot, np.ones(w, bool), cfg, mll, st, impl="flash",
+            remat=remat)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"flash_attention": ops.flash_attention.launches,
+                    "flash_attention_bwd": ops.flash_attention_bwd.launches}
+        check_tensor_cores(f"{phase}-slot-{remat}")
+        want = {"flash_attention": n * w * (2 if remat == "full" else 1),
+                "flash_attention_bwd": n * w}
+        if launches != want or not torch.isfinite(metrics["loss"]).all():
+            raise AssertionError(f"harness slot, remat {remat}: launches "
+                                 f"{launches} (expected {want}), loss "
+                                 f"{metrics['loss'].tolist()}")
+        for k in launches:
+            out["launches"][k] += launches[k]
+        log(phase, f"one harness slot of phase train's cell (W = {w}, "
+            f"{loop.batch_per_worker} x {loop.seq_len} tokens a worker, "
+            f"two_stage), remat={remat}: {secs:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
+            f"launches {launches}, worker losses "
+            f"{metrics['loss'].tolist()} on {smi}")
+    del state, st, slot
+    return out
+
+
+DRYRUN_COMBOS = (("qwen3-1.7b", "train_4k", "local"),
+                 ("qwen3-1.7b", "decode_32k", "dynamic"),
+                 ("xlstm-125m", "train_4k", "local"))
+
+
+def phase_dryrun(cfg, device: torch.device, smi: str, remat: dict,
+                 local_slot_s: float) -> None:
+    """`launch.dryrun.run_one` for three combinations on this host (no
+    JAX here), with the JAX dry run's ``OK`` line and the H100 roofline
+    terms; the cost counter's count of phase remat's qwen3-1.7b step on
+    meta equals its count on the card exactly (FLOPs and bytes, each
+    remat); and the training step's mfu: ``model_flops`` of phase train's
+    local slot over its measured seconds times the bf16 peak."""
+    phase = "dryrun"
+    for arch, shape, ph in DRYRUN_COMBOS:
+        r = dryrun.run_one(arch, shape, phase=ph)
+        log(phase, dryrun.ok_line(r, ph))
+        log(phase, f"{arch} {shape}: roofline {json.dumps(r['roofline'])}; "
+            f"memory per chip {json.dumps(r['memory_analysis'])}; "
+            f"model_flops {r['model_flops']}, useful_fraction "
+            f"{r['useful_fraction']}; kernels per rank "
+            f"{json.dumps(r['rank_costs']['kernels'])}")
+    meta = torch.device("meta")
+    params, batch = _remat_inputs(cfg, meta)
+    for mode in REMATS:
+        got = _counted(_remat_grads, params, batch, cfg, mode)
+        want = remat["card"][mode]
+        if (got["flops"], got["bytes"]) != (want["flops"], want["bytes"]):
+            diff = {k: (got["by_op"].get(k), want["by_op"].get(k))
+                    for k in set(got["by_op"]) | set(want["by_op"])
+                    if got["by_op"].get(k) != want["by_op"].get(k)}
+            raise AssertionError(
+                f"remat {mode}: meta count {got['flops']} FLOPs / "
+                f"{got['bytes']} bytes, card {want['flops']} / "
+                f"{want['bytes']}; ops that differ (meta, card): {diff}")
+        log(phase, f"remat={mode}: the counter's count of phase remat's step "
+            f"on the card equals the same step on meta: {got['flops']} "
+            f"FLOPs ({got['dot_flops']} in matrix products), {got['bytes']} "
+            f"bytes, kernels {json.dumps(got['kernels'])}")
+    tokens = 4 * 4 * 128                  # W x B x S of a local slot
+    mf = cost_analysis.model_flops(cfg.active_param_count(), tokens)
+    mfu = mf / (local_slot_s * cost_analysis.PEAK_FLOPS)
+    log(phase, f"mfu of phase train's local slot ({cfg.name}, {tokens} "
+        f"tokens): model_flops {mf} / ({local_slot_s} s x "
+        f"{cost_analysis.PEAK_FLOPS}) = {mfu} ({100 * mfu:.2f}%) on {smi}")
+
+
 def _free(phase: str, device: torch.device) -> None:
     """Drop what earlier phases left behind, then log what is still held."""
     gc.collect()
@@ -3010,6 +3206,9 @@ def main() -> int:
 
     phase_train_kernels(timer, device)
     trained, mll, train_launches, bwd_rec, _ = phase_train(cfg, device, smi)
+    local_slot_s = float(np.median([
+        t for s, t in enumerate(trained["slot_seconds"])
+        if s > 0 and trained["plan"].op_ids[s] == 0]))
     state = phase_train_profile(cfg, trained, mll, device, smi)
     worker0 = tree_map(lambda x: x[0].clone(), state.params)
     u_k = trained["avg_params"]
@@ -3028,6 +3227,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = phase_train_mesh(device, smi)
     torch.cuda.empty_cache()
+    remat = phase_remat(cfg, device, smi)
+    torch.cuda.empty_cache()
+    phase_dryrun(cfg, device, smi, remat, local_slot_s)
 
     q, k, v, o, lse, do, kw = bwd_rec.call
     k4 = measure_bwd(timer, q, k, v, o, lse, do, kw["causal"], kw["window"],
@@ -3081,7 +3283,8 @@ def main() -> int:
              + train_launches["flash_attention"]
              + ladder["launches"]["flash_attention"]
              + overlap["launches"]["flash_attention"]
-             + mesh["launches"]["flash_attention"] + sim_launches["K3"],
+             + mesh["launches"]["flash_attention"]
+             + remat["launches"]["flash_attention"] + sim_launches["K3"],
              launches_by_path={
                  "serve": launches["flash_attention"],
                  "serve-group16": group16_launches["flash_attention"],
@@ -3089,6 +3292,7 @@ def main() -> int:
                  "train-ladder": ladder["launches"]["flash_attention"],
                  "train-overlap": overlap["launches"]["flash_attention"],
                  "train-mesh": mesh["launches"]["flash_attention"],
+                 "remat": remat["launches"]["flash_attention"],
                  "sim-qwen2": sim_launches["K3"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention"] for path, n in TC_LAUNCHES.items()
@@ -3114,12 +3318,14 @@ def main() -> int:
              + ladder["launches"]["flash_attention_bwd"]
              + overlap["launches"]["flash_attention_bwd"]
              + mesh["launches"]["flash_attention_bwd"]
+             + remat["launches"]["flash_attention_bwd"]
              + sim_launches["K4"],
              launches_by_path={
                  "train": train_launches["flash_attention_bwd"],
                  "train-ladder": ladder["launches"]["flash_attention_bwd"],
                  "train-overlap": overlap["launches"]["flash_attention_bwd"],
                  "train-mesh": mesh["launches"]["flash_attention_bwd"],
+                 "remat": remat["launches"]["flash_attention_bwd"],
                  "sim-qwen2": sim_launches["K4"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention_bwd"]

@@ -32,6 +32,17 @@ PyTorch version in `ref`, and only then.
   kernel (``csrc/hier_mix.cu``) with a dense (W, W) operator or a
   `GroupedOperator`.
 
+On a ``meta`` tensor (the dry run, `launch.dryrun`) the attention and
+sLSTM wrappers launch nothing and run nothing: they return ``meta``
+stand-ins of the kernel's output shapes and dtypes.  A ``meta`` tensor has
+nothing to launch on, so this is no fallback; only a CPU tensor takes the
+plain version.  While a work counter is installed
+(`launch.cost_analysis.CostCounter`, through `set_work_sink`), each of
+those calls, on ``meta`` or on the card, adds its kernel's FLOPs and bytes
+by the formulas of the kernel's bound (`attention_fwd_work` and the
+three below it), and the counter skips the torch ops inside the wrapper,
+so a count does not depend on the device.
+
 Each kernel's launches are counted in a plain integer attribute --
 ``flash_attention.launches`` (forward), ``flash_attention_bwd.launches``,
 ``flash_decode.launches``, ``slstm_scan.launches`` (both forward
@@ -44,6 +55,9 @@ path went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from repro_torch.core import packing
@@ -54,6 +68,103 @@ from repro_torch.kernels import slstm_scan as ss
 from repro_torch.kernels.hier_mix import GroupedOperator, \
     make_grouped_operator  # noqa: F401  (re-exported, as in the JAX ops)
 from repro_torch.tree import tree_map
+
+
+# ----------------------------------------------------------- work accounting
+_SINK = None
+
+
+def set_work_sink(sink):
+    """Install ``sink`` (an object with ``kernel(name, flops, nbytes)``, a
+    context manager) to receive each kernel call's work; ``None`` removes
+    it.  -> the previous sink."""
+    global _SINK
+    prev, _SINK = _SINK, sink
+    return prev
+
+
+def _work(name: str, work, *args, **kwargs):
+    """The installed sink's context for one call of kernel ``name``, whose
+    (FLOPs, bytes) ``work(*args, **kwargs)`` gives (worked out only while
+    a sink is installed)."""
+    if _SINK is None:
+        return contextlib.nullcontext()
+    return _SINK.kernel(name, *work(*args, **kwargs))
+
+
+def live_pairs(t: int, s: int, window: int, causal: bool) -> int:
+    """(query, key) pairs that causal + window masking leaves live."""
+    if not causal:
+        return t * s
+    i = np.arange(t, dtype=np.int64)
+    hi = np.minimum(i, s - 1) + 1
+    lo = np.maximum(0, i - window + 1) if window > 0 else 0
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def attention_fwd_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                       window: int) -> tuple[float, float]:
+    """K3's (FLOPs, bytes): q, k, v read and o written once, lse written;
+    two products of hd per live pair."""
+    b, t, h, hd = q.shape
+    es = q.element_size()
+    nbytes = es * (2 * q.numel() + 2 * k.numel()) + 4 * b * h * t
+    flops = 4 * hd * h * b * live_pairs(t, k.shape[1], window, causal)
+    return float(flops), float(nbytes)
+
+
+def attention_bwd_work(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                       window: int) -> tuple[float, float]:
+    """K4's (FLOPs, bytes): q, o, do, k, v and lse read once, dq, dk, dv
+    written once; five products of hd per live pair (s, dp, dq, dk, dv)."""
+    b, t, h, hd = q.shape
+    es = q.element_size()
+    nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * b * h * t
+    flops = 10 * hd * h * b * live_pairs(t, k.shape[1], window, causal)
+    return float(flops), float(nbytes)
+
+
+def _slstm_bounds_shape(zx: torch.Tensor, block_b: int, chunk: int) -> tuple:
+    bsz, t, h, hd4 = zx.shape
+    _, _, bp, nt = ref.slstm_geometry(bsz, t, block_b, chunk)
+    return (bp, nt, h, hd4 // 4)
+
+
+def slstm_fwd_work(zx: torch.Tensor, r_gates: torch.Tensor,
+                   b_gates: torch.Tensor, *, block_b: int, chunk: int,
+                   residuals: bool) -> tuple[float, float]:
+    """K7's (FLOPs, bytes): zx, R and b read, h (and with ``residuals``
+    the four float32 chunk-entering states) written; the recurrent
+    products, 2 B T H hd 4hd."""
+    bsz, t, h, hd4 = zx.shape
+    es = zx.element_size()
+    rb = 4 * (r_gates.numel() + b_gates.numel())
+    bounds = (4 * 4 * int(np.prod(_slstm_bounds_shape(zx, block_b, chunk)))
+              if residuals else 0)
+    nbytes = es * (zx.numel() + bsz * t * h * (hd4 // 4)) + rb + bounds
+    return float(2 * bsz * t * h * (hd4 // 4) * hd4), float(nbytes)
+
+
+def slstm_bwd_work(zx: torch.Tensor, r_gates: torch.Tensor,
+                   b_gates: torch.Tensor, *, block_b: int, chunk: int
+                   ) -> tuple[float, float]:
+    """K8's (FLOPs, bytes): zx, dh, R, b and the bounds read; dzx, dR, db
+    written; the forward recomputed, dh = dz R^T and dR = h^T dz."""
+    bsz, t, h, hd4 = zx.shape
+    es = zx.element_size()
+    rb = 4 * (r_gates.numel() + b_gates.numel())
+    bounds = 4 * 4 * int(np.prod(_slstm_bounds_shape(zx, block_b, chunk)))
+    nbytes = es * (2 * zx.numel() + bsz * t * h * (hd4 // 4)) + 2 * rb \
+        + bounds
+    return float(3 * 2 * bsz * t * h * (hd4 // 4) * hd4), float(nbytes)
+
+
+def _meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
+
+
+def _cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
 
 
 def flash_attention_fwd_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,11 +179,17 @@ def flash_attention_fwd_res(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             "flash_attention_fwd_res records no gradient; call "
             "flash_attention to differentiate through the kernels")
-    if not q.is_cuda:
+    if _cpu(q):
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
                                            window=window, softcap=softcap)
-    out = fa.flash_attention_fwd_res(q, k, v, causal=causal, window=window,
-                                     softcap=softcap)
+    with _work("flash_attention", attention_fwd_work, q, k, causal=causal,
+               window=window):
+        if _meta(q):
+            b, t, h, _ = q.shape
+            return torch.empty_like(q), q.new_empty((b, h, t),
+                                                    dtype=torch.float32)
+        out = fa.flash_attention_fwd_res(q, k, v, causal=causal,
+                                         window=window, softcap=softcap)
     flash_attention.launches += 1
     flash_attention.tc_launches += q.dtype == torch.bfloat16
     return out
@@ -85,11 +202,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Recomputation backward from the forward's (o, lse): -> (dq, dk, dv)
     in the primal shapes and dtypes."""
-    if not q.is_cuda:
+    if _cpu(q):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                            window=window, softcap=softcap)
-    out = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                 window=window, softcap=softcap)
+    with _work("flash_attention_bwd", attention_bwd_work, q, k,
+               causal=causal, window=window):
+        if _meta(q):
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v))
+        out = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window, softcap=softcap)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.tc_launches += q.dtype == torch.bfloat16
     return out
@@ -159,11 +281,19 @@ def slstm_scan_fwd_res(zx: torch.Tensor, r_gates: torch.Tensor,
         raise ValueError(
             "slstm_scan_fwd_res records no gradient; call slstm_scan to "
             "differentiate through the kernels")
-    if not zx.is_cuda:
+    if _cpu(zx):
         return ref.slstm_scan_fwd_res_ref(zx, r_gates, b_gates,
                                           block_b=block_b, chunk=chunk)
-    out = ss.slstm_scan_fwd_res(zx, r_gates, b_gates, block_b=block_b,
-                                chunk=chunk)
+    with _work("slstm_scan", slstm_fwd_work, zx, r_gates, b_gates,
+               block_b=block_b, chunk=chunk, residuals=True):
+        if _meta(zx):
+            shape = _slstm_bounds_shape(zx, block_b, chunk)
+            acc = torch.float64 if zx.dtype == torch.float64 \
+                else torch.float32
+            return zx.new_empty(zx.shape[:3] + shape[3:]), tuple(
+                zx.new_empty(shape, dtype=acc) for _ in range(4))
+        out = ss.slstm_scan_fwd_res(zx, r_gates, b_gates, block_b=block_b,
+                                    chunk=chunk)
     slstm_scan.launches += 1
     return out
 
@@ -173,11 +303,16 @@ def slstm_scan_bwd(zx: torch.Tensor, r_gates: torch.Tensor,
                    block_b: int = 8, chunk: int = 128):
     """Reverse-time exact VJP from the forward's chunk-boundary states:
     -> (dzx, dR, db) in the primal shapes and dtypes."""
-    if not zx.is_cuda:
+    if _cpu(zx):
         return ref.slstm_scan_bwd_ref(zx, r_gates, b_gates, bounds, dh,
                                       block_b=block_b, chunk=chunk)
-    out = ss.slstm_scan_bwd(zx, r_gates, b_gates, bounds, dh,
-                            block_b=block_b, chunk=chunk)
+    with _work("slstm_scan_bwd", slstm_bwd_work, zx, r_gates, b_gates,
+               block_b=block_b, chunk=chunk):
+        if _meta(zx):
+            return (torch.empty_like(zx), torch.empty_like(r_gates),
+                    torch.empty_like(b_gates))
+        out = ss.slstm_scan_bwd(zx, r_gates, b_gates, bounds, dh,
+                                block_b=block_b, chunk=chunk)
     slstm_scan_bwd.launches += 1
     return out
 
@@ -210,9 +345,14 @@ def slstm_scan(zx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (zx, r_gates, b_gates)):
         return _SLSTMScan.apply(zx, r_gates, b_gates, block_b, chunk)
-    if not zx.is_cuda:
+    if _cpu(zx):
         return ref.slstm_scan_ref(zx, r_gates, b_gates)
-    out = ss.slstm_scan(zx, r_gates, b_gates, block_b=block_b, chunk=chunk)
+    with _work("slstm_scan", slstm_fwd_work, zx, r_gates, b_gates,
+               block_b=block_b, chunk=chunk, residuals=False):
+        if _meta(zx):
+            return zx.new_empty(zx.shape[:3] + (zx.shape[3] // 4,))
+        out = ss.slstm_scan(zx, r_gates, b_gates, block_b=block_b,
+                            chunk=chunk)
     slstm_scan.launches += 1
     return out
 

@@ -33,10 +33,14 @@ rank holds and trains only its (W/size, ...) rows of the fleet, and each
 mixing event lowers to the strategy's collectives among the ranks
 (`core.protocol`'s ``*_spmd`` methods): the paper's communication structure
 across process boundaries.  Every rank executes the same plan.  At eval
-and checkpoint boundaries the rows are gathered, so u_k, the history and
-the checkpoints are computed exactly as on one device and are the same on
-every rank; rank 0 writes the checkpoints, which stay readable by a
-single-process run and by the JAX package.  The full state trajectory
+and checkpoint boundaries u_k is reduced one leaf at a time (each leaf's
+rows all-gathered, averaged with the weights a, and freed before the
+next: `average_rows`), so u_k and the history are computed exactly as on
+one device and are the same on every rank, while no rank holds the whole
+fleet; the full train state of a checkpoint is gathered into rank 0's host
+memory only (`gather_train_state`, the JAX package's ``device_get``), and
+rank 0 writes the checkpoints, which stay readable by a single-process run
+and by the JAX package.  The full state trajectory
 (params, optimizer state, mixing state), every u_k and every loss equal the
 single-device run's bit for bit wherever each sub-network's workers lie on
 at most two ranks (`protocol._grouped_spmd_z`).  The ``data`` axis
@@ -137,19 +141,47 @@ def shard_train_state(state: protocol.MLLTrainState,
 
 def gather_rows(tree: Tree, spmd: protocol.SpmdAxis | None) -> Tree:
     """The full-width tree from every rank's rows (an all-gather per leaf
-    over the workers axis; the same on every rank)."""
+    over the workers axis; the same on every rank).  Only for small trees
+    (the per-worker losses): every rank receives the whole tree."""
     if not _sharded(spmd):
         return tree
     return tree_map(lambda x: collectives.all_gather_rows(x, spmd.group()),
                     tree)
 
 
+def average_rows(tree: Tree, a: torch.Tensor,
+                 spmd: protocol.SpmdAxis | None) -> Tree:
+    """u = X a over the whole fleet, the same on every rank.  On a mesh one
+    leaf at a time: the leaf's rows all-gathered, reduced with ``a`` as
+    one device reduces them, and freed before the next leaf, so a rank
+    never holds more than one gathered leaf."""
+    if not _sharded(spmd):
+        return weighted_average(tree, a)
+
+    return tree_map(lambda x: weighted_average(
+        collectives.all_gather_rows(x, spmd.group()), a), tree)
+
+
 def gather_train_state(state: protocol.MLLTrainState,
-                       spmd: protocol.SpmdAxis | None
-                       ) -> protocol.MLLTrainState:
-    return state._replace(params=gather_rows(state.params, spmd),
-                          opt_state=gather_rows(state.opt_state, spmd),
-                          mix_state=gather_rows(state.mix_state, spmd))
+                       spmd: protocol.SpmdAxis | None, *, writer: int = 0
+                       ) -> protocol.MLLTrainState | None:
+    """The full-width train state, on the ``writer`` rank only and in its
+    host memory (one leaf gathered at a time); ``None`` on every other
+    rank, which only sends its rows.  Ranks whose workers line does not
+    hold the writer (the data replicas) send nothing.  Without a mesh the
+    state itself."""
+    if not _sharded(spmd):
+        return state
+    if writer not in spmd.ranks:
+        return None
+
+    def rows(tree):
+        return tree_map(lambda x: collectives.gather_rows_to_host(
+            x, writer, spmd.group()), tree)
+    full = state._replace(params=rows(state.params),
+                          opt_state=rows(state.opt_state),
+                          mix_state=rows(state.mix_state))
+    return full if spmd.ranks[spmd.index] == writer else None
 
 
 def spmd_axis(mesh, num_workers: int) -> protocol.SpmdAxis:
@@ -377,7 +409,7 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
                           [harness.rows]})
     t0 = time.time()
     done = start_slot
-    final_u = None
+    u = None
     stop = plan.slots if stop_slot is None else min(stop_slot, plan.slots)
     for b in _boundaries(start_slot, stop, eval_every, checkpoint_every):
         train_state, last_metrics = harness.run_span(
@@ -385,7 +417,7 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
         done = b
         u = None
         if (eval_every and done % eval_every == 0) or done == plan.slots:
-            u = weighted_average(gather_rows(train_state.params, spmd), a)
+            u = average_rows(train_state.params, a, spmd)
             eb = batcher.sample(rng)
             one = {k: v[0].to(device) for k, v in eb.items()}
             with torch.no_grad():
@@ -402,9 +434,9 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
                      and done % checkpoint_every == 0) or \
                     (checkpoint_dir and done == stop)
         if want_ckpt:
-            full = gather_train_state(train_state, spmd)
             if u is None:
-                u = weighted_average(full.params, a)
+                u = average_rows(train_state.params, a, spmd)
+            full = gather_train_state(train_state, spmd)
             wl = (None if last_metrics is None else
                   [float(x) for x in
                    gather_rows(last_metrics["loss"], spmd).tolist()])
@@ -425,11 +457,9 @@ def run_plan(cfg: ArchConfig, mll: MLLConfig, network, st: MLLState,
                            else plan_config(mll, network, plan, policy,
                                             rate_model)})
             del full
-        if done == plan.slots:
-            final_u = u
-        del u
-    u = final_u if final_u is not None \
-        else weighted_average(gather_rows(train_state.params, spmd), a)
+    # the last boundary is the stop slot: its u_k, when it computed one
+    if u is None:
+        u = average_rows(train_state.params, a, spmd)
     out_trace = None
     if trace_path and writer:
         meta = {"policy": policy, "rate_model": rate_model,

@@ -303,7 +303,8 @@ def train_rank(cfg: ArchConfig, runs: list[dict], *,
     ``slot_stats`` (with ``loop.profile_slots``), ``launches`` (the
     kernels' launch counts of this rank, `kernels.ops.launch_counts`, and
     the bf16 ones of the two attention wrappers as ``tc_...``),
-    ``collectives`` (`core.collectives.COUNTS`),
+    ``collectives`` (`core.collectives.COUNTS`), ``collective_bytes``
+    (`core.collectives.BYTES`: what this rank received),
     ``peak_bytes`` on a card and ``seconds``, plus with ``ship="tensors"``
     the rank's rows of the train state (``state``) and u_k (``u``, rank 0
     only), with ``ship="digests"`` the `fleet_digests` of the rows' params
@@ -328,6 +329,7 @@ def train_rank(cfg: ArchConfig, runs: list[dict], *,
                           tc_flash_attention_bwd=(
                               ops.flash_attention_bwd.tc_launches)),
             collectives=dict(collectives.COUNTS),
+            collective_bytes=dict(collectives.BYTES),
             peak_bytes=(torch.cuda.max_memory_allocated(device)
                         if device.type == "cuda" else None))
         mesh = res["mesh"]

@@ -23,6 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rope as rope_mod
+from repro_torch.models.pjit_utils import constraint
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (dtype_of, embed_tokens, init_embedding,
                                        init_norm, lm_logits, norm_apply)
@@ -79,16 +80,20 @@ def _positions(batch: dict, cfg: ArchConfig, b: int, s: int,
 
 
 def forward_train(params: dict, batch: dict, cfg: ArchConfig, *,
-                  impl: str = "flash") -> tuple[torch.Tensor, torch.Tensor]:
+                  impl: str = "flash", remat: str = "none"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """batch in the config's input mode -> (logits (B, S_total, vocab), MoE
     aux loss).  Differentiable with every impl; ``impl="flash"`` trains
     attention through the flash-attention forward and backward kernels
     and the sLSTM recurrence through the sLSTM scan forward and backward
-    kernels."""
+    kernels.  ``remat`` ("none" | "full" | "dots") rematerialises each
+    super-block in the backward (`transformer.stack_train`)."""
     x = _input_embeds(params, batch, cfg)
     b, s, _ = x.shape
+    x = constraint(x, "act_batch", "act_seq", None)
     x, aux = tf.stack_train(params["blocks"], x, cfg,
-                            _positions(batch, cfg, b, s, x.device), impl=impl)
+                            _positions(batch, cfg, b, s, x.device), impl=impl,
+                            remat=remat)
     x = norm_apply(params["final_norm"], x, cfg)
     return lm_logits(params["embed"], x, cfg), aux
 

@@ -11,10 +11,42 @@ are lists the same way (``states[i]["pos{j}"]``).
 Every block kind trains and decodes (`stack_train`, `stack_decode`).  The
 batched prefill and the paged decode take attention-only patterns, as in
 the JAX package.
+
+**Rematerialisation** (`stack_train`'s ``remat``, the JAX package's
+``jax.checkpoint`` of the scan body): ``"full"`` runs each super-block
+under `torch.utils.checkpoint.checkpoint` (``use_reentrant=False``), which
+keeps the block's input and recomputes everything else in the backward;
+``"dots"`` is the counterpart of
+``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``, a selective
+checkpoint (`torch.utils.checkpoint.create_selective_checkpoint_contexts`)
+that saves the outputs of the matrix products without batch dimensions
+and recomputes everything else.  The aten ops the products reach:
+
+* ``x @ w`` with a 2-d weight (the MLPs, the LM head, mamba's and the
+  xLSTM blocks' projections) -> ``aten.mm`` after folding the leading
+  dims: no batch dimension, saved;
+* ``torch.einsum("bsd,dhk->bshk", ...)`` and ``"bshk,hkd->bsd"`` (the
+  attention projections q, k, v and o) -> ``aten.bmm`` over a batch of
+  ONE (einsum folds every non-contracted dim of each operand into the
+  product's rows and columns): no batch dimension in JAX's sense, saved;
+* the attention scores and the probabilities' product
+  (``"bthgk,bshk->bhgts"``, ``"bhgts,bshk->bthgk"``), the mLSTM scores,
+  the MoE experts' ``"gecd,edf->gecf"`` -> ``aten.bmm`` over a batch of
+  B·H·G, B·H or the experts: batch dimensions, recomputed (so are the
+  kernels K3 / K7, whose products never reach aten).
+
+So the policy saves ``mm``, ``addmm`` and a ``bmm`` whose batch is 1.  One
+corner differs from JAX: a batched product whose batch is 1 (a single
+sequence, head and group) is saved here and recomputed there.  The
+flash path's autograd Functions (K3 / K4, K7 / K8) run their forward again
+inside the recomputation, so K3 (K7) launches twice per layer and step.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -100,21 +132,56 @@ def _mixer_train(params: dict, h: torch.Tensor, cfg: ArchConfig, kind: str,
     return xlstm_mod.slstm_train(params, h, cfg, impl=impl)
 
 
+REMAT = ("none", "full", "dots")
+
+
+def _no_batch_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims`` over aten ops (module
+    docstring): save the products without batch dimensions."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def super_block_train(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                      positions: torch.Tensor, impl: str = "flash"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One repetition of the pattern: x (B, S, d) -> (y, the MoE aux
+    losses of its positions summed)."""
+    blk_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, kind in enumerate(cfg.pattern):
+        b = params[f"pos{pos}"]
+        h = norm_apply(b["norm1"], x, cfg)
+        x = x + _mixer_train(b["mixer"], h, cfg, kind, positions, impl)
+        x, a = _ffn_aux(b, x, cfg, kind, pos)
+        if a is not None:
+            blk_aux = blk_aux + a
+    return x, blk_aux
+
+
 def stack_train(blocks: list[dict], x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor, *, impl: str = "flash"
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                positions: torch.Tensor, *, impl: str = "flash",
+                remat: str = "none") -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss_sum).  The MoE aux losses add up per
-    super-block, then over super-blocks, as the JAX scan carries them."""
+    super-block, then over super-blocks, as the JAX scan carries them.
+    ``remat`` ("none", "full" or "dots") rematerialises each super-block
+    in the backward (module docstring); the values and gradients are the
+    same bits under every choice."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat {remat!r}; expected one of {REMAT}")
+    body = functools.partial(super_block_train, cfg=cfg, positions=positions,
+                             impl=impl)
+    if remat == "full":
+        body = functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+    elif remat == "dots":
+        body = functools.partial(
+            ckpt.checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _no_batch_dots))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params in blocks:
-        blk_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for pos, kind in enumerate(cfg.pattern):
-            b = params[f"pos{pos}"]
-            h = norm_apply(b["norm1"], x, cfg)
-            x = x + _mixer_train(b["mixer"], h, cfg, kind, positions, impl)
-            x, a = _ffn_aux(b, x, cfg, kind, pos)
-            if a is not None:
-                blk_aux = blk_aux + a
+        x, blk_aux = body(params, x)
         aux = aux + blk_aux
     return x, aux
 

@@ -15,7 +15,10 @@ With ``impl="flash"`` attention trains through the hand-written kernels
 (forward K3, backward K4; `repro_torch.kernels.ops.flash_attention`), and
 so does the sLSTM recurrence (forward K7, backward K8;
 `repro_torch.kernels.ops.slstm_scan`).  ``microbatch > 1`` accumulates
-each worker's gradient over that many chunks of its batch.
+each worker's gradient over that many chunks of its batch.  ``remat``
+("none" | "full" | "dots", the JAX package's choices) rematerialises each
+super-block in the backward (`models.transformer.stack_train`): the same
+gradients, bit for bit, for less activation memory.
 
 `mll_transformer_step` is the stateless tick (plain gated SGD + the mixing
 strategy with fresh state), `mll_transformer_state_step` carries a full
@@ -56,8 +59,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: Tree, batch: dict, cfg: ArchConfig, *,
-            impl: str = "flash") -> tuple[torch.Tensor, dict]:
-    logits, aux = model_mod.forward_train(params, batch, cfg, impl=impl)
+            impl: str = "flash", remat: str = "none"
+            ) -> tuple[torch.Tensor, dict]:
+    logits, aux = model_mod.forward_train(params, batch, cfg, impl=impl,
+                                          remat=remat)
     if cfg.input_mode == "tokens+patches":
         # patches are prepended: only text positions carry labels
         logits = logits[:, cfg.num_patches:]
@@ -82,7 +87,8 @@ def _chunks(wbatch: dict, k: int) -> list[dict]:
 
 
 def per_worker_grads(params: Tree, batch: dict, cfg: ArchConfig, *,
-                     impl: str = "flash", microbatch: int = 1,
+                     impl: str = "flash", remat: str = "none",
+                     microbatch: int = 1,
                      accum_dtype: str = "float32") -> tuple[Tree, dict]:
     """value_and_grad per worker over the leading worker axis of params and
     batch.  -> (stacked grads, {"loss", "ce", "aux"} each (W,) float32).
@@ -110,7 +116,7 @@ def per_worker_grads(params: Tree, batch: dict, cfg: ArchConfig, *,
                   else [_worker(batch, i)])
         total = None
         for j, chunk in enumerate(chunks):
-            loss, m = loss_fn(wp, chunk, cfg, impl=impl)
+            loss, m = loss_fn(wp, chunk, cfg, impl=impl, remat=remat)
             # a leaf the loss does not read (the token table of a model fed
             # frame embeddings) gets a zero gradient, as under jax.grad
             g = torch.autograd.grad(loss, tree_leaves(wp), allow_unused=True,
@@ -153,24 +159,47 @@ def per_worker_losses(params: Tree, batch: dict, cfg: ArchConfig, *,
 
 def mll_transformer_step(stacked_params: Tree, batch: dict, step: int,
                          cfg: ArchConfig, mll: MLLConfig, st: MLLState, *,
-                         impl: str = "flash", microbatch: int = 1,
-                         static_phase: int | None = None
+                         impl: str = "flash", remat: str = "none",
+                         microbatch: int = 1,
+                         static_phase: int | None = None,
+                         spmd: protocol.SpmdAxis | None = None
                          ) -> tuple[Tree, dict]:
     """One production MLL-SGD tick over the whole fleet, stateless: plain
     gated SGD, then the mixing strategy with fresh per-round state
     (`core.mllsgd.mll_train_step`).  ``step`` is the 1-based tick; the
-    params are updated in place."""
+    params are updated in place.
+
+    With ``spmd`` (the JAX package's ``spmd_axis_name``) the params and
+    batch are this rank's rows of the fleet: the gate is drawn at full
+    width and sliced, and the slot's mixing round lowers to the
+    strategy's collectives (``subnet_spmd`` / ``hub_spmd``).  The phase is
+    ``static_phase``, or the schedule's at ``step``."""
     grads, metrics = per_worker_grads(stacked_params, batch, cfg, impl=impl,
-                                      microbatch=microbatch,
+                                      remat=remat, microbatch=microbatch,
                                       accum_dtype=mll.accum_dtype)
-    stacked = mll_train_step(stacked_params, grads, step, mll, st,
-                             static_phase=static_phase)
+    if spmd is None or spmd.size == 1:
+        stacked = mll_train_step(stacked_params, grads, step, mll, st,
+                                 static_phase=static_phase)
+        return stacked, metrics
+    lo = spmd.offset()
+    theta = protocol.gate_sample(mll.seed, step, st.rates)
+    stacked = protocol.gated_sgd_update(
+        stacked_params, grads, theta[lo:lo + spmd.per_shard], mll.eta)
+    del grads
+    phase = (protocol.phase_of(step, mll.tau, mll.q) if static_phase is None
+             else static_phase)
+    if phase != protocol.PHASE_LOCAL:
+        strategy = protocol.resolve_mixing(mll)
+        fn = (strategy.hub_spmd if phase == protocol.PHASE_HUB
+              else strategy.subnet_spmd)
+        stacked = fn(stacked, st, spmd)
     return stacked, metrics
 
 
 def mll_transformer_state_step(train_state: MLLTrainState, batch: dict,
                                cfg: ArchConfig, mll: MLLConfig, st: MLLState,
-                               *, impl: str = "flash", microbatch: int = 1,
+                               *, impl: str = "flash", remat: str = "none",
+                               microbatch: int = 1,
                                static_phase: int | None = None
                                ) -> tuple[MLLTrainState, dict]:
     """One production protocol tick carrying a full `MLLTrainState`: the
@@ -178,7 +207,8 @@ def mll_transformer_state_step(train_state: MLLTrainState, batch: dict,
     (`core.protocol.protocol_step`); the tick lives in
     ``train_state.step``."""
     grads, metrics = per_worker_grads(train_state.params, batch, cfg,
-                                      impl=impl, microbatch=microbatch,
+                                      impl=impl, remat=remat,
+                                      microbatch=microbatch,
                                       accum_dtype=mll.accum_dtype)
     return protocol_step(train_state, grads, mll, st,
                          static_phase=static_phase), metrics
@@ -190,7 +220,7 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
                      phase: int = protocol.PHASE_LOCAL,
                      op: torch.Tensor | None = None,
                      compute_grads: bool = True, impl: str = "flash",
-                     microbatch: int = 1,
+                     remat: str = "none", microbatch: int = 1,
                      spmd: protocol.SpmdAxis | None = None,
                      overlap: str = "none",
                      overlap_chunks: int = 4) -> tuple[MLLTrainState, dict]:
@@ -234,7 +264,7 @@ def mll_harness_step(train_state: MLLTrainState, batch: dict,
     params, opt_state = train_state.params, train_state.opt_state
     if compute_grads:
         grads, metrics = per_worker_grads(params, batch, cfg, impl=impl,
-                                          microbatch=microbatch,
+                                          remat=remat, microbatch=microbatch,
                                           accum_dtype=mll.accum_dtype)
         act = torch.as_tensor(np.asarray(active), dtype=st.rates.dtype)
         if gate_mode == "bernoulli":

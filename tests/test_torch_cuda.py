@@ -808,3 +808,43 @@ def test_cuda_moe_same_bits_twice(cuda_device, dtype):
     torch.testing.assert_close(y1.cpu().float(), want.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(aux1.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+# ------------------------------------------------------------ cost counter
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-125m"])
+def test_cuda_cost_count_equals_meta(cuda_device, arch):
+    """`launch.cost_analysis.CostCounter` over one worker's forward and
+    backward (the smoke config, bf16, through K3 / K4 or K7 / K8, under
+    remat="full"): the count on the card equals the same step's count on
+    meta, FLOPs and bytes exactly, the kernels' work included."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import cost_analysis
+    from repro_torch.models import model as model_mod
+    from repro_torch.train.train_step import loss_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config(arch)
+    toks = torch.randint(1, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(0))
+
+    def count(device):
+        params = (model_mod.param_skeleton(cfg) if device.type == "meta"
+                  else model_mod.init_model(
+                      torch.Generator(device).manual_seed(0), cfg,
+                      device=device))
+        params = tree_map(lambda x: x.requires_grad_(), params)
+        batch = {"tokens": toks[:, :-1].to(device),
+                 "labels": toks[:, 1:].to(device)}
+        with cost_analysis.CostCounter() as c:
+            loss, _ = loss_fn(params, batch, cfg, impl="flash", remat="full")
+            torch.autograd.grad(loss, tree_leaves(params))
+        return c
+
+    ops.reset_launches()
+    card, meta = count(cuda_device), count(torch.device("meta"))
+    assert sum(ops.launch_counts().values()) > 0
+    assert card.costs.kernels == meta.costs.kernels
+    assert dict(card.by_op) == dict(meta.by_op)
+    assert (card.costs.flops, card.costs.bytes) == \
+        (meta.costs.flops, meta.costs.bytes)

@@ -20,8 +20,8 @@ def _port_modules():
         m.name for m in pkgutil.walk_packages([str(PORT)], "repro_torch.")]
 
 
-SLICE_MODULES = (  # the serving, trainer, simulator, generation and mesh
-                   # slices
+SLICE_MODULES = (  # the serving, trainer, simulator, generation, mesh and
+                   # dry-run slices
     "repro_torch.serve.engine", "repro_torch.kernels.ops",
     "repro_torch.core.topology", "repro_torch.core.hierarchy",
     "repro_torch.core.prng", "repro_torch.core.protocol",
@@ -34,7 +34,9 @@ SLICE_MODULES = (  # the serving, trainer, simulator, generation and mesh
     "repro_torch.core.outer", "repro_torch.kernels.hier_mix",
     "repro_torch.serve.serve_step", "repro_torch.models.mamba",
     "repro_torch.models.moe", "repro_torch.launch.mesh",
-    "repro_torch.core.collectives")
+    "repro_torch.core.collectives", "repro_torch.launch.input_specs",
+    "repro_torch.launch.sharding", "repro_torch.models.pjit_utils",
+    "repro_torch.launch.cost_analysis", "repro_torch.launch.dryrun")
 
 
 def test_every_module_of_the_port_is_checked():

@@ -173,6 +173,11 @@ def mesh41(single, tmp_path_factory):
         runs.append(dict(mll=_mll(m), loop=_loop(
             "deadline", (4, 1), profile_slots=True, steps=4),
             num_subnets=4, workers_per_subnet=1))
+    # a two_stage run (no all-gather in its events) checkpointing at slot 4
+    runs.append(dict(mll=_mll("two_stage", inner_opt="momentum"),
+                     loop=_loop("deadline", (4, 1), checkpoint_dir=str(
+                         tmp_path_factory.mktemp("mesh-ck-ts")),
+                         checkpoint_every=4, stop_slot=4)))
     return dict(ranks=_spawn(4, runs), ck=ck)
 
 
@@ -255,6 +260,49 @@ def test_collective_helpers_count_and_move_on_one_rank():
     finally:
         torch.distributed.destroy_process_group()
         collectives.reset()
+
+
+def test_collective_gather_to_host_on_one_rank():
+    """`gather_rows_to_host` on a world of one (gloo): the rows in host
+    memory on the receiving rank, counted with the bytes it received."""
+    store = torch.distributed.HashStore()
+    torch.distributed.init_process_group("gloo", store=store, rank=0,
+                                         world_size=1)
+    try:
+        collectives.reset()
+        g = torch.distributed.new_group([0])
+        x = torch.arange(6.0).reshape(2, 3)
+        got = collectives.gather_rows_to_host(x, 0, g)
+        assert got.device.type == "cpu" and torch.equal(got, x)
+        assert dict(collectives.COUNTS) == {"gather": 1}
+        assert dict(collectives.BYTES) == {"gather": 24}
+    finally:
+        torch.distributed.destroy_process_group()
+        collectives.reset()
+
+
+def test_boundary_gathers_hold_no_fleet_on_non_writers(mesh41):
+    """A boundary with an evaluation and a checkpoint on (4, 1): the full
+    train state goes to the writer (rank 0) only, gathered into its host
+    memory; the other ranks receive none of it.  Every rank's all-gathers
+    bring in u_k's leaves once (one leaf at a time) and the per-worker
+    losses twice, never the optimizer or the mixing state (two_stage's
+    events make no all-gather); the run's end reuses the boundary's u_k."""
+    k = len(COMBOS) + 5
+    ranks = mesh41["ranks"]
+    state = _joined(ranks, k)
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    assert nbytes(state.opt_state) > 0          # momentum buffers
+    full = nbytes((state.params, state.opt_state, state.mix_state))
+    for rank, r in enumerate(ranks):
+        got = r[k]["collective_bytes"]
+        assert got.get("gather", 0) == (full if rank == 0 else 0), rank
+        assert got["all_gather"] == nbytes(state.params) + 2 * 4 * 4, rank
+        assert r[k]["collectives"]["gather"] == len(tree_leaves(
+            (state.params, state.opt_state, state.mix_state)))
+    assert ranks[0][k]["history"]["step"] == [4]
 
 
 # ------------------------------------------------------ (d) checkpoints

@@ -51,6 +51,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve import engine as tengine
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import train_step as tts
+from repro_torch.tree import tree_leaves, tree_map
 
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 JCFG = dataclasses.replace(jax_smoke("qwen3-1.7b"), **F32)
@@ -146,6 +147,96 @@ def test_per_worker_grads_match_jax_vmap(jparams):
     for k in ("loss", "ce", "aux"):
         np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]), **TOL)
     _assert_close(tgrads, jgrads)
+
+
+def _loss_grads(params, batch, remat):
+    """loss_fn's value and gradients in the port (one worker, flash path:
+    the plain versions on the CPU) under ``remat``."""
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    it = iter(leaves)
+    wp = tree_map(lambda _: next(it), params)
+    loss, _ = tts.loss_fn(wp, batch, TCFG, impl="flash", remat=remat)
+    return loss.detach(), wp, torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_grads_bit_equal_and_match_jax(jparams, remat):
+    """loss_fn under each remat: the port's value and gradients equal its
+    own un-rematerialised ones bit for bit (the recomputation repeats the
+    same CPU arithmetic), and JAX's under the same remat within TOL."""
+    stream = jpipe.make_token_stream(1, 200, vocab_size=512, seed=4)
+    jbatch = {k: v[0] for k, v in jpipe.LMBatcher(stream, 16, 2).sample(
+        np.random.default_rng(0)).items()}
+    tbatch = {k: torch.tensor(np.asarray(v)) for k, v in jbatch.items()}
+    tparams = interop.tree_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      "cpu")
+    base_loss, _, base = _loss_grads(tparams, tbatch, "none")
+    loss, wp, grads = _loss_grads(tparams, tbatch, remat)
+    assert torch.equal(loss, base_loss)
+    for a, b in zip(grads, base, strict=True):
+        assert torch.equal(a, b)
+    jloss, jgrads = jax.value_and_grad(lambda p: jts.loss_fn(
+        p, jbatch, JCFG, impl="xla", remat=remat)[0])(jparams)
+    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+    it = iter(grads)
+    _assert_close(tree_map(lambda _: next(it), wp), jgrads,
+                  worker_axis=False)
+
+
+def test_remat_dots_saves_the_products_jax_saves():
+    """``remat="dots"``: the selective policy saves the outputs of the
+    products without batch dimensions -- the attention projections (an
+    einsum's bmm over a batch of one) and the MLP's mm -- and recomputes
+    the attention scores (a bmm over B x H x G); every product output
+    JAX's ``checkpoint_dots_with_no_batch_dims`` keeps is among them."""
+    from jax._src.ad_checkpoint import saved_residuals
+    from repro.models import transformer as jtf
+    from repro_torch.models import transformer as ttf
+    b, s = 2, 16
+    saved, recomputed = [], []
+
+    def spy(ctx, op, *args, **kw):
+        out = ttf._no_batch_dots(ctx, op, *args, **kw)
+        if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default) and not ctx.is_recompute:
+            a, w = args[-2], args[-1]
+            n = a.shape[-2] * w.shape[-1] * (a.shape[0] if a.dim() == 3
+                                            else 1)
+            (saved if out == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+             else recomputed).append((op.__name__, n))
+        return out
+
+    tparams = tmodel.init_model(torch.Generator().manual_seed(0), TCFG,
+                                device="cpu")
+    blk = tparams["blocks"][0]
+    x = torch.randn(b, s, TCFG.d_model, requires_grad=True)
+    pos = tmodel._positions({}, TCFG, b, s, x.device)
+    body = functools.partial(
+        torch.utils.checkpoint.checkpoint, ttf.super_block_train,
+        use_reentrant=False, context_fn=functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts, spy))
+    y, _ = body(blk, x, TCFG, pos, "plain")
+    y.sum().backward()
+    h, hkv, hd = TCFG.n_heads, TCFG.n_kv_heads, TCFG.resolved_head_dim
+    scores = b * h * s * s
+    assert ("bmm.default", scores) in recomputed
+    assert all(n != scores for _, n in saved)
+    # q, k, v, o (einsum -> bmm over one), gate, up, down (mm)
+    assert sorted(n for _, n in saved) == sorted(
+        [b * s * h * hd, b * s * hkv * hd, b * s * hkv * hd,
+         b * s * TCFG.d_model, b * s * TCFG.d_ff, b * s * TCFG.d_ff,
+         b * s * TCFG.d_model])
+
+    jblk = jax.tree.map(lambda a: a[0], jmodel.init_model(
+        jax.random.PRNGKey(0), JCFG)["blocks"])
+    jpos = jmodel.rope_mod.default_positions(JCFG, b, s)
+    f = jax.checkpoint(lambda p, xx: jtf.super_block_train(
+        p, xx, JCFG, jpos, "xla")[0].sum(),
+        policy=jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims)
+    kept = [int(np.prod(aval.shape)) for aval, why in
+            saved_residuals(f, jblk, jnp.ones((b, s, JCFG.d_model)))
+            if why.startswith("output of reduce_precision")]
+    assert kept and all(n in [m for _, m in saved] for n in kept), kept
 
 
 def _run_plan_pair(jparams, policy, rate_model, slots=8):
