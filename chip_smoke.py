@@ -146,14 +146,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    bf16): 2 prompts of 64 tokens, 16 new, ms per step beside the floor
    of reading every weight; decode against `forward_train` in bf16 (mean
    and argmax) and in float32 at full width (53 GB); the state changed.
-16e. chunked -- one qwen3-1.7b attention (B 1, T 8,192, 16 / 8 heads of
+16e. train-jamba -- jamba-v0.1-52b at full width cut to 8 layers (phase
+   16d's cut), one worker's `loss_fn` forward and backward on 1 x 2,048
+   tokens, bf16, through K3 / K4 in its attention layer and the chunked
+   associative scan in its 7 mamba layers: ms (median of 3 after a
+   warm-up), peak memory, mfu, one K3 / K4 launch a step; every gradient
+   leaf finite and nonzero; bf16 logits flash vs plain where the routing
+   agrees, gradients flash vs plain at phase 8's limits; the counter's
+   card count = its meta count; the same weights in float32 (53 GB),
+   every leaf's gradient flash vs plain a group at a time at float32's
+   limits; K3 / K4 measured at the step's shapes.
+16f. train-musicgen -- musicgen-large at full width (48 layers, 2.42 B
+   params, bf16) fed frame embeddings, 2 x 1,024 frames: `forward_train`
+   and one worker's forward + backward through K3 / K4, timed; flash vs
+   plain gradients at phase 8's limits; 32 decode steps against
+   `forward_train` in bf16 and in float32.
+16g. chunked -- one qwen3-1.7b attention (B 1, T 8,192, 16 / 8 heads of
    128, bf16): `_sdpa_chunked`, the plain `_sdpa`, K3 and SDPA agree and
    are timed; K3's measurement joins the report as a new shape.
    The generation paths launch no kernel (their attention is the plain
    path, as the JAX package's); each phase asserts it.
-17. report -- K3 at the serve, training, sim and T = 8,192 shapes, K6 at the serve
-   path's busiest decode tick and at one 4,096-token lane (with the splits
-   chosen), K4 at the training shape; one ``{"kernels": [...]}`` JSON line,
+17. report -- K3 at the serve, training, sim, train-jamba and T = 8,192
+   shapes, K6 at the serve path's busiest decode tick and at one
+   4,096-token lane (with the splits chosen), K4 at the training and
+   train-jamba shapes; one ``{"kernels": [...]}`` JSON line,
    the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or away from the repository, it exits non-zero and prints no
@@ -1072,12 +1088,11 @@ def _rel_errors(got: list, want: list) -> list:
             for a, b in zip(got, want)]
 
 
-def grad_parity(cfg, worker0: dict, device: torch.device, seq_len: int
+def grad_parity(cfg, worker0: dict, batch: dict
                 ) -> tuple[list, list, float, float]:
-    """Gradients of one worker on one batch of 4 x ``seq_len`` tokens,
-    flash vs plain.  -> (leaf names, relative norm error per leaf, flash
-    loss, plain loss)."""
-    batch = _parity_batch(cfg, seq_len, device)
+    """Gradients of one worker on one (1, B, ...) batch, flash vs plain.
+    -> (leaf names, relative norm error per leaf, flash loss, plain
+    loss)."""
     names, gf, lf = _worker_grads(cfg, worker0, batch, "flash")
     _, gp, lp = _worker_grads(cfg, worker0, batch, "plain")
     return names, _rel_errors(gf, gp), lf, lp
@@ -1085,17 +1100,22 @@ def grad_parity(cfg, worker0: dict, device: torch.device, seq_len: int
 
 def phase_train_parity(cfg, worker0: dict, device: torch.device, *,
                        phase: str = "train-parity", seq_len: int = 128,
+                       batch: dict | None = None,
                        report: tuple[str, ...] = (),
                        limits: tuple[float, float] = (0.05, 0.25)) -> None:
-    """Full-width gradients of one worker on one batch, flash vs plain,
-    held to ``limits`` (the median and the largest relative error of a
-    leaf) and a loss |diff| of 0.05; the leaves whose key holds a name in
-    ``report`` are printed apart."""
-    names, rel, lf, lp = grad_parity(cfg, worker0, device, seq_len)
+    """Full-width gradients of one worker on one batch (default: 4 x
+    ``seq_len`` random tokens), flash vs plain, held to ``limits`` (the
+    median and the largest relative error of a leaf) and a loss |diff| of
+    0.05; the leaves whose key holds a name in ``report`` are printed
+    apart."""
+    if batch is None:
+        batch = _parity_batch(cfg, seq_len, device)
+    names, rel, lf, lp = grad_parity(cfg, worker0, batch)
     loss_diff = abs(lf - lp)
     order = np.argsort(rel)[::-1]
+    shape = " x ".join(str(n) for n in batch["labels"].shape[1:])
     log(phase, f"{cfg.name} ({cfg.num_layers} layers, {cfg.compute_dtype}), "
-        f"one worker, 4 x {seq_len} tokens: loss flash {lf} plain {lp} "
+        f"one worker, {shape} labels: loss flash {lf} plain {lp} "
         f"(|diff| {loss_diff}); {len(rel)} leaves, relative grad error median "
         f"{float(np.median(rel))} max {max(rel)}; largest: " + ", ".join(
             f"{names[i]} {rel[i]:.4f}" for i in order[:4]))
@@ -2385,8 +2405,9 @@ def _remat_grads(params: dict, batch: dict, cfg, remat: str
     return loss.detach(), torch.autograd.grad(loss, tree_leaves(params))
 
 
-def _remat_inputs(cfg, device) -> tuple[dict, dict]:
-    """Random full-width params (seeded, gradients on) and 1 x 4,096
+def _remat_inputs(cfg, device, tokens: int = REMAT_TOKENS
+                  ) -> tuple[dict, dict]:
+    """Random full-width params (seeded, gradients on) and 1 x ``tokens``
     tokens, on ``device`` (``meta``: the same step's stand-ins)."""
     if device.type == "meta":
         params = model_mod.param_skeleton(cfg)
@@ -2394,10 +2415,19 @@ def _remat_inputs(cfg, device) -> tuple[dict, dict]:
         params = model_mod.init_model(torch.Generator(device).manual_seed(11),
                                       cfg, device=device)
     params = tree_map(lambda x: x.requires_grad_(), params)
-    toks = torch.randint(1, cfg.vocab_size, (1, REMAT_TOKENS + 1),
+    toks = torch.randint(1, cfg.vocab_size, (1, tokens + 1),
                          generator=torch.Generator().manual_seed(4))
     return params, {"tokens": toks[:, :-1].to(device),
                     "labels": toks[:, 1:].to(device)}
+
+
+def _leaf_names(params: dict) -> list[str]:
+    """Each leaf's checkpoint key (with its super-block), in
+    `tree_leaves` order."""
+    names = []
+    interop.map_with_keys(lambda k, b, x: names.append(
+        k if b is None else f"{k}[{b}]"), params)
+    return names
 
 
 def _counted(fn, *args) -> dict:
@@ -2424,9 +2454,7 @@ def phase_remat(cfg, device: torch.device, smi: str) -> dict:
     dryrun."""
     phase = "remat"
     params, batch = _remat_inputs(cfg, device)
-    names = []
-    interop.map_with_keys(lambda k, b, x: names.append(
-        k if b is None else f"{k}[{b}]"), params)
+    names = _leaf_names(params)
     _remat_grads(params, batch, cfg, "none")                  # warm
     torch.cuda.synchronize()
     ref_loss, ref_grads = _remat_grads(params, batch, cfg, "none")
@@ -2530,6 +2558,19 @@ def phase_remat(cfg, device: torch.device, smi: str) -> dict:
     return out
 
 
+def _same_count(what: str, meta: dict, card: dict) -> None:
+    """Raises unless the meta count's FLOPs and bytes equal the card's,
+    naming the ops that differ."""
+    if (meta["flops"], meta["bytes"]) != (card["flops"], card["bytes"]):
+        diff = {k: (meta["by_op"].get(k), card["by_op"].get(k))
+                for k in set(meta["by_op"]) | set(card["by_op"])
+                if meta["by_op"].get(k) != card["by_op"].get(k)}
+        raise AssertionError(
+            f"{what}: meta count {meta['flops']} FLOPs / {meta['bytes']} "
+            f"bytes, card {card['flops']} / {card['bytes']}; ops that "
+            f"differ (meta, card): {diff}")
+
+
 DRYRUN_COMBOS = (("qwen3-1.7b", "train_4k", "local"),
                  ("qwen3-1.7b", "decode_32k", "dynamic"),
                  ("xlstm-125m", "train_4k", "local"))
@@ -2556,15 +2597,7 @@ def phase_dryrun(cfg, device: torch.device, smi: str, remat: dict,
     params, batch = _remat_inputs(cfg, meta)
     for mode in REMATS:
         got = _counted(_remat_grads, params, batch, cfg, mode)
-        want = remat["card"][mode]
-        if (got["flops"], got["bytes"]) != (want["flops"], want["bytes"]):
-            diff = {k: (got["by_op"].get(k), want["by_op"].get(k))
-                    for k in set(got["by_op"]) | set(want["by_op"])
-                    if got["by_op"].get(k) != want["by_op"].get(k)}
-            raise AssertionError(
-                f"remat {mode}: meta count {got['flops']} FLOPs / "
-                f"{got['bytes']} bytes, card {want['flops']} / "
-                f"{want['bytes']}; ops that differ (meta, card): {diff}")
+        _same_count(f"remat {mode}", got, remat["card"][mode])
         log(phase, f"remat={mode}: the counter's count of phase remat's step "
             f"on the card equals the same step on meta: {got['flops']} "
             f"FLOPs ({got['dot_flops']} in matrix products), {got['bytes']} "
@@ -3085,6 +3118,352 @@ def phase_generate_jamba(device: torch.device, smi: str) -> dict:
     return row
 
 
+# ------------------------------------------------- jamba and musicgen train
+JAMBA_LAYERS = 8              # one super-block of jamba's 8-layer pattern
+JAMBA_TOKENS = 2048           # 1 x 2,048 tokens: 8 chunks of the scan
+JAMBA_STEPS = 3               # timed steps after the warm-up
+# the float32 check: 53 GB of float32 weights leave room neither for all
+# 53 GB of their gradients (the leaves are compared a group of at most 4
+# GB of gradients at a time) nor for the float32 activations of 2,048
+# tokens (the forward alone runs out of the card's 80 GB), so it takes
+# the first 1,024 tokens (4 chunks)
+JAMBA_F32_GROUP_BYTES, JAMBA_F32_TOKENS = 4e9, 1024
+# float32 flash vs plain: ten times tighter than the bf16 limits (phase
+# 13's rule): median and largest relative error of a leaf, loss |diff|
+F32_GRAD_LIMITS, F32_LOSS_DIFF = (0.005, 0.025), 0.005
+
+
+def _flash_vs_plain_grads(params: dict, batch: dict, cfg, group_bytes: float
+                          ) -> tuple[list, list, float, float]:
+    """One worker's gradients of every leaf, ``impl="flash"`` against
+    ``"plain"``, a group of at most ``group_bytes`` of gradients at a time
+    (one forward and backward of each impl per group; a leaf's gradient
+    is taken from ``.grad`` by a hook as soon as the backward has it, so
+    no more than one group's flash gradients is held).  -> (relative norm
+    error per leaf, the leaves whose flash gradient is not finite or all
+    zeros, flash loss, plain loss)."""
+    leaves = tree_leaves(params)
+    groups, size = [[]], 0.0
+    for i, x in enumerate(leaves):
+        nb = x.numel() * x.element_size()
+        if groups[-1] and size + nb > group_bytes:
+            groups.append([])
+            size = 0.0
+        groups[-1].append(i)
+        size += nb
+    rel, dead, held, losses = [None] * len(leaves), [], {}, {}
+
+    def keep(i):
+        def hook(p):
+            g, p.grad = p.grad, None
+            if not (bool(torch.isfinite(g).all()) and g.abs().max() > 0):
+                dead.append(i)
+            held[i] = g
+        return hook
+
+    def compare(i):
+        def hook(p):
+            g, p.grad = p.grad.float(), None
+            rel[i] = ((held.pop(i).float() - g).norm()
+                      / g.norm().clamp(min=1e-30)).item()
+        return hook
+    for group in groups:
+        for impl, fn in (("flash", keep), ("plain", compare)):
+            handles = [leaves[i].register_post_accumulate_grad_hook(fn(i))
+                       for i in group]
+            loss, _ = train_loss_fn(params, batch, cfg, impl=impl)
+            loss.backward(inputs=[leaves[i] for i in group])
+            losses.setdefault(impl, loss.item())
+            for h in handles:
+                h.remove()
+    return rel, dead, losses["flash"], losses["plain"]
+
+
+def _grad_check(phase: str, what: str, names: list, rel: list, lf: float,
+                lp: float, limits: tuple[float, float] | None,
+                loss_diff: float | None, report: tuple[str, ...] = ()
+                ) -> dict:
+    """Logs and holds flash-vs-plain relative gradient errors to
+    ``limits`` (median, largest) and the loss |diff| to ``loss_diff``
+    (None: reported, not held)."""
+    order = np.argsort(rel)[::-1]
+    row = dict(leaves=len(rel), median=float(np.median(rel)),
+               max=float(max(rel)), loss_flash=lf, loss_plain=lp,
+               loss_diff=abs(lf - lp), limits=limits, loss_limit=loss_diff,
+               largest={names[i]: rel[i] for i in order[:4]},
+               reported={n: r for n, r in zip(names, rel)
+                         if any(k in n for k in report)})
+    log(phase, f"{what}: {json.dumps(row)}")
+    if not all(np.isfinite(rel)) or limits is not None and (
+            row["max"] > limits[1] or row["median"] > limits[0]
+            or row["loss_diff"] > loss_diff):
+        raise AssertionError(f"{phase}: {what} beyond its limits")
+    return row
+
+
+def phase_train_jamba(timer: Timer, device: torch.device, smi: str) -> dict:
+    """jamba-v0.1-52b (arXiv:2403.19887) at full width cut from 32 to 8
+    layers (one super-block: 7 mamba layers, 1 attention layer of 32 / 8
+    heads of 128 without rope, 4 MoE layers of 16 experts top-2, d_ff
+    14,336; ~13.3 B params, 26.6 GB in bf16): one worker's
+    `train_step.loss_fn` forward and backward on 1 x 2,048 tokens (8
+    chunks of the selective scan), bf16, remat none, ``impl="flash"`` (K3
+    forward, K4 backward in the attention layer).  One warm-up step, then
+    3 timed: ms (median), peak memory, mfu (6 x active params x tokens
+    over the step's seconds and the bf16 peak), K3 / K4 launches (one
+    each a step, bf16 on the tensor cores).  Checks: every gradient leaf
+    is finite and nonzero (a_log, dt_bias, d_skip and the routers named);
+    the bf16 logits flash vs plain at the serve contract on every
+    position whose top-2 experts agree at every MoE layer (the experts of
+    both recorded), the mean over all; the bf16 gradients and loss flash
+    vs plain at phase 8's limits; the counter's count of the step on the
+    card equals its count on meta; then the same weights cast to float32
+    (53 GB), every leaf's gradient flash vs plain a group of leaves at a
+    time at float32's limits.  K3 and K4 are measured at the step's
+    shapes.  Reduced: depth (8 of 32 layers); the float32 check runs
+    on the first 1,024 of the 2,048 tokens (float32 activations of 2,048
+    tokens do not fit beside 53 GB of float32 weights)."""
+    phase = "train-jamba"
+    _free(phase, device)
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              num_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    params, batch = _remat_inputs(cfg, device, JAMBA_TOKENS)
+    torch.cuda.synchronize()
+    names = _leaf_names(params)
+    n_params = model_mod.count_params(params)
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in tree_leaves(params))
+    log(phase, f"{cfg.name} cut to {cfg.num_layers} layers (pattern "
+        f"{cfg.pattern}, MoE at {cfg.moe_positions}): {n_params} params, "
+        f"{weight_bytes / 1e9} GB, initialised in "
+        f"{time.perf_counter() - t0} s")
+    _remat_grads(params, batch, cfg, "none")                  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    step_ms = []
+    with BwdRecorder() as rec:
+        for _ in range(JAMBA_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = _remat_grads(params, batch, cfg, "none")
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(step_ms) < JAMBA_STEPS:
+                del grads
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "flash_attention_bwd": ops.flash_attention_bwd.launches}
+    want = {k: _layers_of(cfg, "attn") * JAMBA_STEPS for k in launches}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    check_tensor_cores(phase)
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = float(np.median(step_ms))
+    mf = cost_analysis.model_flops(cfg.active_param_count(), JAMBA_TOKENS)
+    row = dict(step_ms=step_ms, median_ms=ms, peak_gib=peak / 2**30,
+               peak_above_weights_gib=(peak - held) / 2**30,
+               params=n_params, active_params=cfg.active_param_count(),
+               weight_gb=weight_bytes / 1e9, tokens=JAMBA_TOKENS,
+               tokens_per_s=JAMBA_TOKENS / (ms / 1e3), model_flops=mf,
+               mfu=mf / (ms / 1e3 * cost_analysis.PEAK_FLOPS),
+               loss=loss.item(), launches=launches)
+    log(phase, f"one worker, 1 x {JAMBA_TOKENS} tokens, bf16, remat none: "
+        f"{json.dumps(row)} on {smi}")
+    dead = [names[i] for i, g in enumerate(grads)
+            if not (bool(torch.isfinite(g).all()) and g.abs().max() > 0)]
+    watched = {n: g.float().norm().item() for n, g in zip(names, grads)
+               if any(k in n for k in ("a_log", "dt_bias", "d_skip",
+                                       "router"))}
+    log(phase, f"{len(grads)} gradient leaves; not finite or all zeros: "
+        f"{dead}; norms of the mamba and router leaves {json.dumps(watched)}")
+    if dead:
+        raise AssertionError(f"{phase}: gradient leaves {dead} are not "
+                             "finite or all zeros")
+    del grads, loss
+    q, k, v, o, lse, do, kw = rec.call
+    del rec
+    row["k4"] = measure_bwd(timer, q, k, v, o, lse, do, kw["causal"],
+                            kw["window"], kw["softcap"])
+    row["k3"] = dict(q=list(q.shape), **measure_fwd(
+        timer, q.detach(), k.detach(), v.detach(), kw["window"],
+        kw["softcap"], kw["causal"]))
+    log(phase, f"K3 at the step's shape q {tuple(q.shape)} k "
+        f"{tuple(k.shape)}: {json.dumps(row['k3'])}")
+    log(phase, f"K4 at the step's shape: {json.dumps(row['k4'])}")
+    del q, k, v, o, lse, do
+
+    # bf16 logits, flash vs plain, with the experts of every MoE layer
+    with torch.inference_mode():
+        (flash, _), f_route = _routed(model_mod.forward_train, params,
+                                      batch, cfg, impl="flash")
+        (plain, _), p_route = _routed(model_mod.forward_train, params,
+                                      batch, cfg, impl="plain")
+    flips = (torch.stack(f_route).sort(-1).values
+             != torch.stack(p_route).sort(-1).values).any(-1)  # (MoE, T)
+    agree = ~flips.any(0)
+    row["routing_bf16"] = dict(positions=JAMBA_TOKENS,
+                               flipped=int((~agree).sum()),
+                               flips_by_moe_layer=flips.sum(1).tolist())
+    log(phase, f"bf16 routing, flash vs plain: "
+        f"{json.dumps(row['routing_bf16'])}")
+    row["logits_bf16"] = _relative_check(
+        phase, f"bf16 logits flash vs plain, the {int(agree.sum())} "
+        f"positions whose routing agrees", flash[0, agree], plain[0, agree],
+        MAX_REL, MEAN_REL)
+    row["logits_bf16_all"] = _relative_check(
+        phase, "bf16 logits flash vs plain, all positions", flash, plain,
+        None, MEAN_REL)
+    del flash, plain
+    # gradients of the loss over the positions whose routing agrees (a
+    # position that took other experts on one side moves its own loss
+    # term by tens of percent); over all positions reported beside it
+    masked = dict(batch, loss_mask=agree[None].float())
+    rel, _, lf, lp = _flash_vs_plain_grads(params, masked, cfg, math.inf)
+    row["grads_bf16"] = _grad_check(
+        phase, f"bf16 gradients flash vs plain, loss over the "
+        f"{int(agree.sum())} positions whose routing agrees", names, rel, lf,
+        lp, (0.05, 0.25), 0.05, ("a_log", "dt_bias", "router"))
+    rel, _, lf, lp = _flash_vs_plain_grads(params, batch, cfg, math.inf)
+    row["grads_bf16_all"] = _grad_check(
+        phase, "bf16 gradients flash vs plain, loss over all positions "
+        "(reported, held to no limit)", names, rel, lf, lp, None, None)
+
+    # the counter's count of the step: on the card = on meta
+    card = _counted(_remat_grads, params, batch, cfg, "none")
+    meta_params, meta_batch = _remat_inputs(cfg, torch.device("meta"),
+                                            JAMBA_TOKENS)
+    got = _counted(_remat_grads, meta_params, meta_batch, cfg, "none")
+    _same_count(phase, got, card)
+    row["count"] = {k: got[k] for k in ("flops", "dot_flops", "bytes",
+                                        "kernels")}
+    log(phase, f"the counter's count of the step on the card equals the "
+        f"same step on meta: {json.dumps(row['count'])}")
+    del meta_params, meta_batch
+
+    # float32: the same weights cast up a leaf at a time
+    _free(phase, device)
+    for leaf in tree_leaves(params):
+        if leaf.is_floating_point():
+            leaf.data = leaf.data.float()
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    short = {k: v[:, :JAMBA_F32_TOKENS] for k, v in batch.items()}
+    held = torch.cuda.memory_allocated(device) / 2**30
+    t0 = time.perf_counter()
+    rel, dead, lf, lp = _flash_vs_plain_grads(params, short, f32,
+                                              JAMBA_F32_GROUP_BYTES)
+    row["grads_f32"] = _grad_check(
+        phase, f"float32 gradients flash vs plain, 1 x {JAMBA_F32_TOKENS} "
+        f"tokens ({time.perf_counter() - t0} s; {held} GiB held, peak "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30} GiB)",
+        names, rel, lf, lp, F32_GRAD_LIMITS, F32_LOSS_DIFF,
+        ("a_log", "dt_bias", "router"))
+    if dead:
+        raise AssertionError(f"{phase}: float32 gradient leaves "
+                             f"{[names[i] for i in dead]} are not finite or "
+                             "all zeros")
+    del params, batch
+    return row
+
+
+MUSICGEN_BATCH, MUSICGEN_FRAMES = 2, 1024
+MUSICGEN_DECODE = 32          # decode steps checked against forward_train
+
+
+@torch.inference_mode()
+def _embeds_decode(params, cfg, frames: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` frames of ``frames`` (B, S, d) through `decode_step`
+    from a fresh state -> float32 logits (B, n, V)."""
+    state = model_mod.init_decode_state(cfg, frames.shape[0], n,
+                                        frames.device)
+    out = []
+    for t in range(n):
+        lg, state = model_mod.decode_step(
+            params, state, {"frame_embeds": frames[:, t:t + 1]}, t, cfg)
+        out.append(lg[:, 0].float())
+    return torch.stack(out, dim=1)
+
+
+def phase_train_musicgen(device: torch.device, smi: str) -> dict:
+    """musicgen-large (arXiv:2306.05284) at full width and depth: 48 layers,
+    d_model 2,048, 32 heads of 64 (MHA, rope), gelu MLP of 8,192,
+    layernorm, 2.42 B params in bf16 (4.8 GB), fed frame embeddings (the
+    ``embeds`` input mode: (B, S, 2,048) in place of tokens, labels over
+    its 2,048 codes).  On 2 x 1,024 frames: `forward_train` (K3, inference)
+    and one worker's forward + backward (`per_worker_grads`, K3 + K4),
+    timed after a warm-up, 48 launches of each a pass; flash vs plain
+    gradients at phase 8's limits; 32 `decode_step`s fed the same frames
+    against the flash `forward_train`'s logits at the serve contract in
+    bf16, then the weights cast to float32 against a plain float32
+    `forward_train` at float32's limits."""
+    phase = "train-musicgen"
+    _free(phase, device)
+    cfg = get_config("musicgen-large")
+    params = model_mod.init_model(torch.Generator(device).manual_seed(13),
+                                  cfg, device=device)
+    n_params = model_mod.count_params(params)
+    gen = torch.Generator(device).manual_seed(14)
+    frames = torch.randn(MUSICGEN_BATCH, MUSICGEN_FRAMES, cfg.d_model,
+                         generator=gen, device=device).to(torch.bfloat16)
+    labels = torch.randint(0, cfg.vocab_size, frames.shape[:2],
+                           generator=gen, device=device)
+    fwd_batch = {"frame_embeds": frames}
+    batch = {"frame_embeds": frames[None], "labels": labels[None]}
+    worker = tree_map(lambda x: x[None], params)
+    with torch.inference_mode():
+        model_mod.forward_train(params, fwd_batch, cfg)          # warm-up
+    per_worker_grads(worker, batch, cfg, impl="flash")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()
+    with torch.inference_mode():
+        (logits, _), fwd_ms = _timed(lambda: model_mod.forward_train(
+            params, fwd_batch, cfg, impl="flash"))
+    (grads, m), step_ms = _timed(lambda: per_worker_grads(
+        worker, batch, cfg, impl="flash"))
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "flash_attention_bwd": ops.flash_attention_bwd.launches}
+    n = _layers_of(cfg, "attn")
+    want = {"flash_attention": 2 * n, "flash_attention_bwd": n}
+    if launches != want or not torch.isfinite(m["loss"]).all():
+        raise AssertionError(f"{phase}: launches {launches} (expected "
+                             f"{want}), loss {m['loss'].tolist()}")
+    check_tensor_cores(phase)
+    tokens = MUSICGEN_BATCH * MUSICGEN_FRAMES
+    mf = cost_analysis.model_flops(cfg.active_param_count(), tokens)
+    row = dict(params=n_params, frames=[MUSICGEN_BATCH, MUSICGEN_FRAMES],
+               forward_ms=fwd_ms, step_ms=step_ms,
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               mfu=mf / (step_ms / 1e3 * cost_analysis.PEAK_FLOPS),
+               loss=m["loss"].item(), launches=launches)
+    log(phase, f"{cfg.name} ({cfg.num_layers} layers, bf16): "
+        f"{json.dumps(row)} on {smi}")
+    del grads, m, worker
+    phase_train_parity(cfg, params, device, phase=phase, batch=batch)
+    dec = _embeds_decode(params, cfg, frames, MUSICGEN_DECODE)
+    row["decode_vs_forward_train_bf16"] = _relative_check(
+        phase, f"bf16 decode_step vs forward_train (K3), {MUSICGEN_DECODE} "
+        f"positions", dec, logits[:, :MUSICGEN_DECODE], MAX_REL, MEAN_REL)
+    del logits, dec
+    for leaf in tree_leaves(params):
+        leaf.data = leaf.data.float()
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    frames = frames.float()
+    dec = _embeds_decode(params, f32, frames, MUSICGEN_DECODE)
+    with torch.inference_mode():
+        train, _ = model_mod.forward_train(params, {"frame_embeds": frames},
+                                           f32, impl="plain")
+    row["decode_vs_forward_train_f32"] = _relative_check(
+        phase, f"float32 decode_step vs forward_train, {MUSICGEN_DECODE} "
+        f"positions", dec, train[:, :MUSICGEN_DECODE], F32_MAX_REL,
+        F32_MEAN_REL)
+    del params, dec, train
+    return row
+
+
 def phase_chunked(timer: Timer, device: torch.device, smi: str) -> dict:
     """One qwen3-1.7b attention geometry (16 / 8 heads of 128), B = 1,
     T = 8,192, bf16, causal: `_sdpa_chunked` (query chunks of 512), the
@@ -3234,6 +3613,7 @@ def main() -> int:
     q, k, v, o, lse, do, kw = bwd_rec.call
     k4 = measure_bwd(timer, q, k, v, o, lse, do, kw["causal"], kw["window"],
                      kw["softcap"])
+    k4_shape = q.shape
     log("report", f"K4 at the training path's shapes q {tuple(q.shape)} k "
         f"{tuple(k.shape)} {str(q.dtype)[6:]}: {json.dumps(k4)}")
     # K3 at the shapes that launch it most: training and simulation
@@ -3260,6 +3640,9 @@ def main() -> int:
     phase_generate(device, smi)
     phase_generate_xlstm(device, smi)
     phase_generate_jamba(device, smi)
+    jamba = phase_train_jamba(timer, device, smi)
+    k3_shapes["train-jamba"] = jamba["k3"]
+    musicgen = phase_train_musicgen(device, smi)
     k3_shapes["chunked-8192"] = phase_chunked(timer, device, smi)
     log("report", f"K3 at the chunked phase's shape q (1, 8192, 16, 128): "
         f"{json.dumps(k3_shapes['chunked-8192'])}")
@@ -3284,7 +3667,9 @@ def main() -> int:
              + ladder["launches"]["flash_attention"]
              + overlap["launches"]["flash_attention"]
              + mesh["launches"]["flash_attention"]
-             + remat["launches"]["flash_attention"] + sim_launches["K3"],
+             + remat["launches"]["flash_attention"] + sim_launches["K3"]
+             + jamba["launches"]["flash_attention"]
+             + musicgen["launches"]["flash_attention"],
              launches_by_path={
                  "serve": launches["flash_attention"],
                  "serve-group16": group16_launches["flash_attention"],
@@ -3293,7 +3678,9 @@ def main() -> int:
                  "train-overlap": overlap["launches"]["flash_attention"],
                  "train-mesh": mesh["launches"]["flash_attention"],
                  "remat": remat["launches"]["flash_attention"],
-                 "sim-qwen2": sim_launches["K3"]},
+                 "sim-qwen2": sim_launches["K3"],
+                 "train-jamba": jamba["launches"]["flash_attention"],
+                 "train-musicgen": musicgen["launches"]["flash_attention"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention"] for path, n in TC_LAUNCHES.items()
                  if n["flash_attention"]},
@@ -3319,18 +3706,25 @@ def main() -> int:
              + overlap["launches"]["flash_attention_bwd"]
              + mesh["launches"]["flash_attention_bwd"]
              + remat["launches"]["flash_attention_bwd"]
-             + sim_launches["K4"],
+             + sim_launches["K4"]
+             + jamba["launches"]["flash_attention_bwd"]
+             + musicgen["launches"]["flash_attention_bwd"],
              launches_by_path={
                  "train": train_launches["flash_attention_bwd"],
                  "train-ladder": ladder["launches"]["flash_attention_bwd"],
                  "train-overlap": overlap["launches"]["flash_attention_bwd"],
                  "train-mesh": mesh["launches"]["flash_attention_bwd"],
                  "remat": remat["launches"]["flash_attention_bwd"],
-                 "sim-qwen2": sim_launches["K4"]},
+                 "sim-qwen2": sim_launches["K4"],
+                 "train-jamba": jamba["launches"]["flash_attention_bwd"],
+                 "train-musicgen":
+                     musicgen["launches"]["flash_attention_bwd"]},
              tensor_core_launches_by_path={
                  path: n["flash_attention_bwd"]
                  for path, n in TC_LAUNCHES.items()
                  if n["flash_attention_bwd"]},
+             shapes={"train": dict(q=list(k4_shape), ms=k4["ms"]),
+                     "train-jamba": dict(q=jamba["k3"]["q"], **jamba["k4"])},
              ptxas={k: v for k, v in ptxas["flash_bwd"].items()
                     if "tc_kernel" in k or "group_sum" in k
                     or "delta" in k},

@@ -108,14 +108,27 @@ def build_state(cfg: MLLConfig, network: MultiLevelNetwork,
     return state_from_network(network, dtype=dtype, device=device)
 
 
+def apply_schedule_with_state(stacked: Tree, mix_state, step: int,
+                              cfg: MLLConfig, st: MLLState, *,
+                              static_phase: int | None = None
+                              ) -> tuple[Tree, object]:
+    """Apply T_k for this step through the registered mixing strategy (in
+    place), threading its per-strategy state (e.g. int8_ef residuals):
+    -> (params, the new state).  ``mix_state=None`` starts from fresh
+    state."""
+    strategy = cfg.mixing_strategy()
+    if mix_state is None:
+        mix_state = strategy.init_state(stacked)
+    return protocol.schedule_mix(strategy, stacked, mix_state, step, st,
+                                 cfg.tau, cfg.q, static_phase=static_phase)
+
+
 def apply_schedule(stacked: Tree, step: int, cfg: MLLConfig, st: MLLState,
                    *, static_phase: int | None = None) -> Tree:
-    """Apply T_k for this step through the registered mixing strategy (in
-    place)."""
-    strategy = cfg.mixing_strategy()
-    out, _ = protocol.schedule_mix(strategy, stacked,
-                                   strategy.init_state(stacked), step, st,
-                                   cfg.tau, cfg.q, static_phase=static_phase)
+    """State-free view of `apply_schedule_with_state`: stateful strategies
+    run from fresh state (in place)."""
+    out, _ = apply_schedule_with_state(stacked, None, step, cfg, st,
+                                       static_phase=static_phase)
     return out
 
 

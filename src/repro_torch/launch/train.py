@@ -108,6 +108,13 @@ class TrainLoopConfig:
                                      # (`TrainHarness` ``slot_stats``)
 
 
+def replicate_params(params: dict, w: int) -> dict:
+    """``w`` stacked replicas of ``params`` on a new leading worker axis.
+    They are real copies, not views (JAX's ``broadcast_to``): the port
+    updates the workers in place."""
+    return replicate(params, w)
+
+
 def _calibrate(cfg: ArchConfig, loop: TrainLoopConfig, stacked,
                batcher: LMBatcher, log) -> RateCalibration:
     """Measured-rate warmup pass; a calibration already serialized in the
@@ -182,7 +189,7 @@ def run_training(cfg: ArchConfig, mll: MLLConfig, loop: TrainLoopConfig,
     gen = torch.Generator(device).manual_seed(loop.seed)
     params = model_mod.init_model(gen, cfg, device=device)
     n_params = model_mod.count_params(params)
-    stacked = replicate(params, rows)
+    stacked = replicate_params(params, rows)
     del params
     log(f"arch={cfg.name} params={n_params/1e6:.1f}M workers={w} "
         f"(D={num_subnets} x N={workers_per_subnet}) tau={mll.tau} q={mll.q} "

@@ -1,15 +1,21 @@
 """Mamba (S6 selective state space) block, Jamba's SSM layers (counterpart
 of `repro/models/mamba.py`).
 
-Training/prefill runs the selective scan chunk by chunk (CHUNK = 256
-steps when the length divides into such chunks, else one chunk), carrying
-the hidden state across chunks; inside a chunk the recurrence
-``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t`` runs step by step in float32,
-where the JAX version runs `jax.lax.associative_scan`: the same recurrence
-with another rounding order.  Decode runs one step on an explicit
-(B, d_inner, N) float32 state and a (B, K-1, d_inner) conv tail in the
-compute dtype.  The JAX version's sharding ``constraint`` calls have no
-counterpart on one device and are dropped.
+Training/prefill runs the selective scan as the JAX version does: chunks of
+CHUNK = 256 steps when the length divides into such chunks (else one
+chunk), the hidden state carried from chunk to chunk, and inside a chunk
+an associative scan of ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t`` over
+the chunk axis in float32 -- the odd/even recursion of
+`jax.lax.associative_scan` (`_assoc_scan`), so the work is O(chunk) in
+about log2(chunk) levels of eager ops.  One chunk is a
+`torch.autograd.Function` (`_ChunkScan`) that saves only its inputs: its
+backward recomputes the states and runs the adjoint recurrence with the
+same scan over the reversed chunk, so the bytes of a chunk's backward
+grow linearly with its length and no intermediate of the scan is held
+between the forward and the backward.  Decode runs one step on an
+explicit (B, d_inner, N) float32 state and a (B, K-1, d_inner) conv tail
+in the compute dtype.  The JAX version's sharding ``constraint`` calls
+have no counterpart on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -89,6 +95,76 @@ def _chunk_size(length: int) -> int:
     return length // nchunks if length % nchunks == 0 else length
 
 
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The b part of `jax.lax.associative_scan` over dim 1 with JAX's
+    ``combine((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)``: the same
+    odd/even recursion, so h_t = a_t h_{t-1} + b_t with h_0 = b_0 (a_0 is
+    never read).  The products of the a's are formed only where a b part
+    needs them."""
+    n = a.shape[1]
+    if n < 2:
+        return b
+    a_odd = a[:, 1::2]
+    odd = _assoc_scan(a[:, 0:-1:2] * a_odd, a_odd * b[:, 0:-1:2] + b[:, 1::2])
+    even = a[:, 2::2] * (odd[:, :-1] if n % 2 == 0 else odd) + b[:, 2::2]
+    out = b.new_empty(b.shape)
+    out[:, 0] = b[:, 0]
+    out[:, 2::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _chunk_states(dt, a, b_c, u, h0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's decay exp(dt A) (B, c, di, N) and its states h_0..h_c
+    (B, c+1, di, N), h_0 the carried state prepended as step 0's drive with
+    a decay of ones (the JAX version's concatenation)."""
+    decay = torch.exp(dt[..., None] * a)
+    drive = (dt * u.float())[..., None] * b_c[:, :, None, :]
+    hs = _assoc_scan(torch.cat([torch.ones_like(decay[:, :1]), decay], 1),
+                     torch.cat([h0[:, None], drive], 1))
+    return decay, hs
+
+
+class _ChunkScan(torch.autograd.Function):
+    """One chunk of the selective scan: (dt (B, c, di), A (di, N), B / C
+    (B, c, N), u (B, c, di), h0 (B, di, N)) -> (y (B, c, di), h_c), all
+    float32 but u.  Saves only its inputs; the backward recomputes the
+    states and runs the adjoint G_t = C_t dy_t + a_{t+1} G_{t+1}, seeded
+    at the last step with the outgoing state's gradient, as the same
+    associative scan over the reversed chunk."""
+
+    @staticmethod
+    def forward(ctx, dt, a, b_c, c_c, u, h0):
+        ctx.save_for_backward(dt, a, b_c, c_c, u, h0)
+        _, hs = _chunk_states(dt, a, b_c, u, h0)
+        # the state is cloned: a view would keep all of hs alive in the
+        # next chunk's saved inputs
+        return (torch.einsum("bcdn,bcn->bcd", hs[:, 1:], c_c),
+                hs[:, -1].clone())
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, a, b_c, c_c, u, h0 = ctx.saved_tensors
+        decay, hs = _chunk_states(dt, a, b_c, u, h0)
+        g = c_c[:, :, None, :] * dy[..., None]              # (B,c,di,N)
+        g[:, -1] += dh_last
+        # reversed, step k carries a_{c-k+1}; step 0's decay is never read
+        a_rev = torch.cat([decay[:, :1], decay[:, 1:].flip(1)], 1)
+        big_g = _assoc_scan(a_rev, g.flip(1)).flip(1)       # G_1..G_c
+        del g, a_rev
+        d_dta = big_g * hs[:, :-1] * decay                   # d(dt A)
+        uf = u.float()
+        dw = torch.einsum("bcdn,bcn->bcd", big_g, b_c)      # d(dt u)
+        d_dt = (d_dta * a).sum(-1) + dw * uf
+        grads = [d_dt, torch.einsum("bcdn,bcd->dn", d_dta, dt),
+                 torch.einsum("bcdn,bcd->bcn", big_g, dt * uf),
+                 torch.einsum("bcdn,bcd->bcn", hs[:, 1:], dy),
+                 (dw * dt).to(u.dtype),
+                 decay[:, 0] * big_g[:, 0]]
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad))
+
+
 def _selective_scan_chunked(dt, a, b_mat, c_mat, u) -> torch.Tensor:
     """h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t ;  y_t = C_t . h_t.
     dt: (B, L, di) f32, a: (di, N), b/c: (B, L, N), u: (B, L, di).
@@ -100,15 +176,9 @@ def _selective_scan_chunked(dt, a, b_mat, c_mat, u) -> torch.Tensor:
     ys = []
     for lo in range(0, l, csize):
         sl = slice(lo, lo + csize)
-        decay = torch.exp(dt[:, sl, :, None] * a)               # (B,c,di,N)
-        drive = ((dt[:, sl] * u[:, sl].float())[..., None]
-                 * b_mat[:, sl, None, :])
-        hs = []
-        for i in range(decay.shape[1]):
-            h = decay[:, i] * h + drive[:, i]
-            hs.append(h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", torch.stack(hs, dim=1),
-                               c_mat[:, sl]))
+        y, h = _ChunkScan.apply(dt[:, sl], a, b_mat[:, sl], c_mat[:, sl],
+                                u[:, sl], h)
+        ys.append(y)
     return torch.cat(ys, dim=1)
 
 

@@ -75,12 +75,15 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig
     # ---- load-balance aux loss (per group, averaged)
     me = probs.mean(dim=1)                                       # (G, E)
     flat_e = top_e.reshape(g, tg * k)                            # (G, Tg*k)
-    ce = F.one_hot(flat_e, e).sum(dim=1).float() / (tg * k)
+    # one-hot by comparison, not F.one_hot: the same ops on every device
+    # (F.one_hot checks its input's range on the host for some devices and
+    # not others), so the cost counter counts the same on meta and the card
+    onehot = (flat_e[..., None] == torch.arange(e, device=x.device)).long()
+    ce = onehot.sum(dim=1).float() / (tg * k)
     aux = cfg.router_aux_weight * e * torch.sum(me * ce) / g
 
     # ---- slot of each (token, k) pair in its expert's buffer: the running
     # count of its expert over the pairs before it, in (token, k) order
-    onehot = F.one_hot(flat_e, e)                                # (G, Tg*k, E)
     slot = torch.gather(onehot.cumsum(dim=1) - 1, 2, flat_e[..., None])[..., 0]
     keep = slot < cap
     slot_c = torch.where(keep, slot, cap)                        # overflow bin

@@ -164,6 +164,36 @@ def test_hub_rounds_match_jax_threading_state(name):
         assert any(bool(x.abs().max() > 0) for x in tree_leaves(ef))
 
 
+def test_apply_schedule_with_state_threads_int8_ef_like_jax():
+    """`apply_schedule_with_state` at two hub steps (4, 8) of W = 3 x 2,
+    the int8_ef residuals threaded from the first call (fresh state from
+    ``None``) into the second, against the JAX function; the state-free
+    `apply_schedule` gives the first call's params (tests/test_protocol.py
+    holds JAX's to the same)."""
+    jcfg, tcfg, jst, tst = _states("int8_ef")
+    rng = np.random.default_rng(3)
+    trees = [_tree(rng, 6) for _ in range(2)]
+    js, ts = jax.tree.map(jnp.asarray, trees[0]), _t(trees[0])
+    jm = tm = None
+    for step, tree in zip((4, 8), trees):
+        if step == 8:          # a local change between the two hub rounds
+            js = jax.tree.map(lambda x, e: x + 0.1 * e, js, tree)
+            for x, e in zip(tree_leaves(ts), tree_leaves(_t(tree))):
+                x += 0.1 * e
+        else:
+            stateless = tmll.apply_schedule(
+                tree_map(torch.clone, ts), step, tcfg, tst)
+        js, jm = jmll.apply_schedule_with_state(js, jm, jnp.asarray(step),
+                                                jcfg, jst)
+        ts, tm = tmll.apply_schedule_with_state(ts, tm, step, tcfg, tst)
+        _check("int8_ef", ts, js)
+        _check("int8_ef", tm, jm)
+        if step == 4:
+            for a, b in zip(tree_leaves(stateless), tree_leaves(ts)):
+                assert torch.equal(a, b)
+    assert any(bool(x.abs().max() > 0) for x in tree_leaves(tm))
+
+
 @pytest.mark.parametrize("k", [1, 3, 32, 40])
 def test_topk_ties_keep_the_lowest_index_like_jax(k):
     """All-ones rows (every RMSNorm scale at init) and rows of few distinct

@@ -12,6 +12,11 @@ the JAX package's `launch/hlo_analysis.py`, on the CPU.
   versions return, in shape and dtype, and count their work by formula.
 * The collective helpers on ``meta`` stand-in groups record the kind,
   bytes and ranks that the same calls record in a gloo world of two.
+* Mamba's chunked selective scan, forward and backward on ``meta``, moves
+  bytes linearly in its chunk: at most 1.75 GB at chunk 256 (B 1,
+  d_inner 512, N 16; a step-by-step loop under autograd counted 17.49 GB
+  there, growing ~3.9x per doubling), and chunk 256 at most 2.2 times
+  chunk 128.
 """
 import dataclasses
 
@@ -30,6 +35,7 @@ from repro_torch.core import collectives
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import cost_analysis as ca
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import mamba as tmamba
 from repro_torch.models import model as tmodel
 from repro_torch.train.train_step import loss_fn
 from repro_torch.tree import tree_leaves, tree_map
@@ -182,6 +188,27 @@ def test_full_width_step_on_meta_counts_kernels_under_remat():
     assert calls["none"] == {"flash_attention": n, "flash_attention_bwd": n}
     assert calls["full"] == {"flash_attention": 2 * n,
                              "flash_attention_bwd": n}
+
+
+def _scan_bytes(chunk: int, di: int = 512, n: int = 16) -> float:
+    """Counted bytes of `_selective_scan_chunked`'s forward and backward
+    over one chunk on meta."""
+    dt, u = (_meta(1, chunk, di, dtype=torch.float32) for _ in range(2))
+    bm, cm = (_meta(1, chunk, n, dtype=torch.float32) for _ in range(2))
+    ins = [x.requires_grad_() for x in (dt, _meta(di, n, dtype=torch.float32),
+                                        bm, cm, u)]
+
+    def step():
+        y = tmamba._selective_scan_chunked(*ins)
+        torch.autograd.grad(y, ins, torch.empty_like(y))
+    return ca.count(step)[1].bytes
+
+
+def test_mamba_scan_backward_bytes_linear_in_the_chunk():
+    assert tmamba._chunk_size(256) == 256 and tmamba._chunk_size(128) == 128
+    b128, b256 = _scan_bytes(128), _scan_bytes(256)
+    assert b256 <= 1.75e9
+    assert b256 / b128 <= 2.2
 
 
 def _collective_ranks(meta: bool) -> list:

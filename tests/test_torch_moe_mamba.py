@@ -14,10 +14,14 @@ Tolerances:
 * grouped dispatch against global without drops, and one expert against
   the dense MLP: atol = rtol = 2e-4 and 1e-4, the JAX tests' own;
 * `mamba_train` / `mamba_decode` against JAX: atol = rtol = 1e-4.  The
-  port runs the selective scan step by step where JAX runs an associative
-  scan inside each chunk: the same recurrence, another rounding order,
-  and the differences stay at ~1e-6 of outputs of ~1 over 600 steps;
-* mamba decode against mamba train inside the port: atol = rtol = 1e-4.
+  port runs JAX's associative scan (the same odd/even recursion) inside
+  each chunk, but its backward is a hand-written adjoint scan where JAX
+  differentiates through the recursion: the same gradients in another
+  rounding order, so the gradients of `mamba_train` and of the jamba
+  smoke model's `loss_fn` are held to the same 1e-4;
+* mamba decode against mamba train inside the port: atol = rtol = 1e-4;
+* the jamba smoke model under remat full / dots against none: bit for
+  bit (the recomputation repeats the same CPU arithmetic).
 """
 import dataclasses
 
@@ -29,12 +33,17 @@ import torch
 
 from repro.configs.registry import get_smoke_config as jax_smoke
 from repro.models import mamba as jmamba
+from repro.models import model as jmodel
 from repro.models import moe as jmoe
+from repro.train import checkpoint as jckpt
+from repro.train import train_step as jts
 from repro_torch import interop
 from repro_torch.configs.registry import get_smoke_config as torch_smoke
 from repro_torch.models import mamba as tmamba
 from repro_torch.models import moe as tmoe
 from repro_torch.models.layers import mlp_apply
+from repro_torch.train import train_step as tts
+from repro_torch.tree import tree_leaves, tree_map
 
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -210,6 +219,77 @@ def test_mamba_train_matches_jax(mamba, length):
     got = tmamba.mamba_train(tp, torch.from_numpy(x), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MAMBA_TOL)
     assert tmamba._chunk_size(length) == {24: 24, 300: 300, 512: 256}[length]
+
+
+@pytest.mark.parametrize("length", [24, 300, 512])
+def test_mamba_train_grads_match_jax(mamba, length):
+    """The gradients of sum(mamba_train(x) * w) with respect to every
+    parameter leaf and the input x against `jax.grad` of JAX's: one chunk,
+    one chunk of a length CHUNK does not divide, two chunks (the carried
+    state's gradient crosses the chunk boundary)."""
+    jcfg, tcfg, jp, tp = mamba
+    x = _x((2, length, jcfg.d_model)) * 0.5
+    w = _x((2, length, jcfg.d_model), seed=2)
+    jgp, jgx = jax.jit(jax.grad(lambda p, v: jnp.sum(
+        jmamba.mamba_train(p, v, jcfg) * w), argnums=(0, 1)))(
+            jp, jnp.asarray(x))
+    params = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = (tmamba.mamba_train(params, tx, tcfg) * torch.from_numpy(w)).sum()
+    grads = torch.autograd.grad(loss, [*params.values(), tx])
+    for name, got in zip([*params, "x"], grads, strict=True):
+        want = np.asarray(jgx if name == "x" else jgp[name])
+        np.testing.assert_allclose(got.numpy(), want, err_msg=name,
+                                   **MAMBA_TOL)
+
+
+@pytest.fixture(scope="module")
+def jamba():
+    """The jamba smoke model (mamba + attention, MoE) in float32, params
+    from JAX's `init_model`, and one batch of 2 x 48 tokens."""
+    jcfg, tcfg = _cfgs("jamba-v0.1-52b")
+    jp = jax.jit(jmodel.init_model, static_argnums=1)(
+        jax.random.PRNGKey(0), jcfg)
+    toks = np.random.default_rng(3).integers(1, jcfg.vocab_size, (2, 49))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    return jcfg, tcfg, jp, batch
+
+
+def _jamba_grads(tp, batch, tcfg, remat):
+    leaves = [x.clone().requires_grad_() for x in tree_leaves(tp)]
+    it = iter(leaves)
+    wp = tree_map(lambda _: next(it), tp)
+    loss, _ = tts.loss_fn(wp, {k: torch.from_numpy(v) for k, v in
+                               batch.items()}, tcfg, impl="flash",
+                          remat=remat)
+    return loss.detach(), wp, torch.autograd.grad(loss, leaves)
+
+
+def test_jamba_loss_grads_match_jax_and_remat_bit_equal(jamba):
+    """loss_fn of the jamba smoke model: the value and every gradient leaf
+    against `jax.value_and_grad` of JAX's; under remat full and dots the
+    port's loss and gradients equal its own un-rematerialised ones bit for
+    bit."""
+    jcfg, tcfg, jp, batch = jamba
+    tp = interop.tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    loss, wp, grads = _jamba_grads(tp, batch, tcfg, "none")
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jts.loss_fn(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg,
+        impl="xla")[0]))(jp)
+    np.testing.assert_allclose(float(loss), float(jloss), **MAMBA_TOL)
+    it = iter(grads)
+    got = interop.flatten(tree_map(lambda _: next(it), wp),
+                          worker_axis=False)
+    want = jckpt._flatten(jgrads)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **MAMBA_TOL)
+    for remat in ("full", "dots"):
+        rloss, _, rgrads = _jamba_grads(tp, batch, tcfg, remat)
+        assert torch.equal(rloss, loss), remat
+        for a, b in zip(rgrads, grads, strict=True):
+            assert torch.equal(a, b), remat
 
 
 def test_mamba_decode_matches_jax_and_train(mamba):

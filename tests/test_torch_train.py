@@ -130,6 +130,22 @@ def test_token_stream_and_batches_match_jax():
                                   np.asarray(jb.sample(jrng)["tokens"]))
 
 
+def test_replicate_params_matches_jax_and_copies(jparams):
+    """`launch.train.replicate_params`: the JAX function's stacked values
+    (W = 3), as real copies: writing one worker leaves the others and the
+    source untouched."""
+    from repro.launch import train as jtrain
+    tparams = interop.tree_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      "cpu")
+    stacked = ttrain.replicate_params(tparams, 3)
+    _assert_equal(stacked, interop.tree_from_numpy(jax.tree.map(
+        np.asarray, jtrain.replicate_params(jparams, 3)), "cpu",
+        worker_axis=True))
+    leaf, src = tree_leaves(stacked)[0], tree_leaves(tparams)[0]
+    leaf[0] += 1.0
+    assert torch.equal(leaf[1], src) and not torch.equal(leaf[0], src)
+
+
 def test_per_worker_grads_match_jax_vmap(jparams):
     """The port's worker loop through the flash-attention autograd Function
     (plain versions on CPU) against JAX's vmap(value_and_grad); the kernels'
