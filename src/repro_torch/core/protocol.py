@@ -56,6 +56,7 @@ import torch
 
 from repro_torch import interop, resolve_device
 from repro_torch.core import collectives, packing, prng
+from repro_torch.launch import spans
 from repro_torch.optim import optimizers as optim_mod
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -817,11 +818,15 @@ class MixingStrategy:
     def init_state(self, stacked_params: Tree) -> Tree:
         return ()
 
+    # each ``*_with_state`` method, overrides included, is one mixing
+    # round: the ``mix`` span (`launch.spans`) of a traced slot
     def subnet_with_state(self, stacked, st, state):
-        return self.subnet(stacked, st), state
+        with spans.span("mix"):
+            return self.subnet(stacked, st), state
 
     def hub_with_state(self, stacked, st, state):
-        return self.hub(stacked, st), state
+        with spans.span("mix"):
+            return self.hub(stacked, st), state
 
     # ---- SPMD lowering: inputs and outputs are this rank's (W/size, ...)
     # worker rows; collectives run among the ranks of ``spmd``
@@ -842,10 +847,12 @@ class MixingStrategy:
             f"mixing={self.name!r} has no SPMD hub lowering")
 
     def subnet_spmd_with_state(self, local, st, state, spmd):
-        return self.subnet_spmd(local, st, spmd), state
+        with spans.span("mix"):
+            return self.subnet_spmd(local, st, spmd), state
 
     def hub_spmd_with_state(self, local, st, state, spmd):
-        return self.hub_spmd(local, st, spmd), state
+        with spans.span("mix"):
+            return self.hub_spmd(local, st, spmd), state
 
 
 MIXING_REGISTRY: dict[str, type[MixingStrategy]] = {}
@@ -998,7 +1005,9 @@ class Int8EFMixing(Int8Mixing):
     def hub_with_state(self, stacked, st, state):
         if isinstance(state, tuple) and not state:   # caller without state
             state = init_error_feedback(stacked)
-        return hub_average_intq_ef(stacked, state, st, levels=self.levels)
+        with spans.span("mix"):
+            return hub_average_intq_ef(stacked, state, st,
+                                       levels=self.levels)
 
 
 @register("int4_ef")
@@ -1053,8 +1062,10 @@ class TopKEFMixing(Int8Mixing):
     def hub_with_state(self, stacked, st, state):
         if isinstance(state, tuple) and not state:   # caller without state
             state = init_error_feedback(stacked)
-        return hub_average_topk_ef(stacked, state, st, ratio=self.k_ratio,
-                                   momentum=self.ef_momentum)
+        with spans.span("mix"):
+            return hub_average_topk_ef(stacked, state, st,
+                                       ratio=self.k_ratio,
+                                       momentum=self.ef_momentum)
 
     def hub_payload_bytes(self, st, spec):
         return sum(8 * _topk_count(s.size, self.k_ratio) for s in spec.slots)
@@ -1078,8 +1089,9 @@ class PowerSGDMixing(Int8Mixing):
     def hub_with_state(self, stacked, st, state):
         if isinstance(state, tuple) and not state:   # caller without state
             state = init_powersgd_state(stacked, self.rank)
-        params, ef, q = hub_average_powersgd(stacked, state["ef"],
-                                             state["q"], st)
+        with spans.span("mix"):
+            params, ef, q = hub_average_powersgd(stacked, state["ef"],
+                                                 state["q"], st)
         return params, {"ef": ef, "q": q}
 
     def hub_payload_bytes(self, st, spec):
@@ -1133,19 +1145,21 @@ def gated_inner_update(optimizer: optim_mod.Optimizer, stacked: Tree,
     stacked tensors) with its own count as ``step``, and the result is
     copied into the slice -- the same elementwise arithmetic, without a
     second copy of the fleet."""
-    gate = theta.detach().cpu() != 0
-    counts = opt_state["counts"] + gate.to(opt_state["counts"].device,
-                                           torch.int32)
-    inner = opt_state["inner"]
-    for i in torch.nonzero(gate).flatten().tolist():
-        def take(x, i=i):
-            return x[i]
-        new_p, new_s = optimizer.update(tree_map(take, grads),
-                                        tree_map(take, inner),
-                                        tree_map(take, stacked), counts[i])
-        for dst, src in zip(tree_leaves(tree_map(take, (stacked, inner))),
-                            tree_leaves((new_p, new_s))):
-            dst.copy_(src)
+    with spans.span("update"):
+        gate = theta.detach().cpu() != 0
+        counts = opt_state["counts"] + gate.to(opt_state["counts"].device,
+                                               torch.int32)
+        inner = opt_state["inner"]
+        for i in torch.nonzero(gate).flatten().tolist():
+            def take(x, i=i):
+                return x[i]
+            new_p, new_s = optimizer.update(tree_map(take, grads),
+                                            tree_map(take, inner),
+                                            tree_map(take, stacked),
+                                            counts[i])
+            for dst, src in zip(tree_leaves(tree_map(take, (stacked, inner))),
+                                tree_leaves((new_p, new_s))):
+                dst.copy_(src)
     return stacked, {"inner": inner, "counts": counts}
 
 

@@ -54,6 +54,7 @@ from repro_torch.core.hierarchy import MLLSchedule, MultiLevelNetwork
 from repro_torch.core.simulator import SimConfig, _check_kernel, \
     _check_overlap, apply_operator, evaluate, init_sim_carry, replicate, \
     to_device, weighted_average
+from repro_torch.launch import spans
 from repro_torch.tree import tree_leaves, tree_map, tree_structure, \
     tree_unflatten
 
@@ -499,15 +500,16 @@ def apply_event_operator(stacked: Tree, op: torch.Tensor,
     rank's rows) the product is an all-gather and a local product into the
     rank's output rows (`protocol._einsum_operator_spmd`, in place), packed
     where the single-device path packs: the same per-row arithmetic, so the
-    same bits."""
-    if spmd is not None and spmd.size > 1:
-        packed = packing.all_f32(stacked) and packing.flat_paths_enabled(
-            tree_leaves(stacked)[0].device)
-        return protocol._einsum_operator_spmd(op, stacked, None, spmd,
-                                              packed=packed)
-    if packing.all_f32(stacked):
-        return apply_operator(stacked, op)
-    return protocol._einsum_operator(op, stacked, None)
+    same bits.  One mixing round: the ``mix`` span (`launch.spans`)."""
+    with spans.span("mix"):
+        if spmd is not None and spmd.size > 1:
+            packed = packing.all_f32(stacked) and packing.flat_paths_enabled(
+                tree_leaves(stacked)[0].device)
+            return protocol._einsum_operator_spmd(op, stacked, None, spmd,
+                                                  packed=packed)
+        if packing.all_f32(stacked):
+            return apply_operator(stacked, op)
+        return protocol._einsum_operator(op, stacked, None)
 
 
 def _chunkwise(ins: list[Tree], num_chunks: int,
@@ -579,10 +581,12 @@ def chunked_apply_operator(stacked: Tree, op: torch.Tensor,
     ``out=stacked`` mixes in place (the production harness: its fleet
     has no room for a second copy); by default the result is a new tree.
     Carries `chunked_update_mix`'s reduction-order contract: agrees with
-    ``overlap="none"`` to float32 tolerance, not bit for bit."""
-    t = op.to(tree_leaves(stacked)[0].device, torch.float32)
-    return _chunkwise([stacked], num_chunks,
-                      lambda x: torch.einsum("ij,ic->jc", t, x), out)
+    ``overlap="none"`` to float32 tolerance, not bit for bit.  One mixing
+    round: the ``mix`` span (`launch.spans`)."""
+    with spans.span("mix"):
+        t = op.to(tree_leaves(stacked)[0].device, torch.float32)
+        return _chunkwise([stacked], num_chunks,
+                          lambda x: torch.einsum("ij,ic->jc", t, x), out)
 
 
 def _pallas_opt_state(opt_state: Tree, theta: torch.Tensor) -> Tree:

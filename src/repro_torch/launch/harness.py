@@ -49,6 +49,7 @@ replicates compute.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable
 
@@ -60,6 +61,7 @@ from repro_torch.core import collectives, protocol, timeline
 from repro_torch.core.mllsgd import MLLConfig, MLLState
 from repro_torch.core.simulator import weighted_average
 from repro_torch.data.pipeline import LMBatcher, rng_state
+from repro_torch.launch import spans
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.attention import check_impl
 from repro_torch.train import checkpoint
@@ -218,7 +220,10 @@ class TrainHarness:
     ``slot_stats`` (a list) records each slot it runs: the event
     (``"local"``, ``"subnet"``, ``"hub"`` or ``"op"``), its seconds
     between device synchronises, the collectives it made
-    (`core.collectives.COUNTS`) and their staging and transfer seconds."""
+    (`core.collectives.COUNTS`), their staging and transfer seconds, and
+    its ``spans`` (`launch.spans.Tracer.resolve`): ``slot`` (the batch
+    draw and the step), ``grads`` with ``forward`` / ``backward`` /
+    ``grad_copy`` per worker row, ``update`` and ``mix``."""
 
     def __init__(self, cfg: ArchConfig, mll: MLLConfig, st: MLLState, *,
                  gate_mode: str, impl: str = "flash", mesh=None,
@@ -253,6 +258,7 @@ class TrainHarness:
         self.mesh, self.spmd = mesh, None
         self.rows = slice(0, self.num_workers)
         self.slot_stats = slot_stats
+        self._tracer: spans.Tracer | None = None   # made on a traced slot
         if mesh is not None:
             self.spmd = spmd_axis(mesh, self.num_workers)
             # fail at construction, not at the first event
@@ -267,30 +273,47 @@ class TrainHarness:
     def step(self, state, batch, active, **kw):
         """One slot over this harness' rows (``active`` is the plan's full
         (W,) mask)."""
-        def run():
+        return self._slot(state, lambda: batch, active, **kw)
+
+    def _slot(self, state, draw: Callable[[], dict], active, **kw):
+        """`step` on the batch ``draw()`` returns.  With ``slot_stats``
+        the slot is traced (`launch.spans`): a device synchronise, the
+        anchor, then the root span ``slot`` over the draw and the step;
+        ``seconds`` runs from a synchronise after the draw to the
+        closing one, which lies outside the root span."""
+        def run(batch):
             return mll_harness_step(
                 state, batch, active[self.rows], self.cfg, self.mll, self.st,
                 gate_mode=self.gate_mode, impl=self.impl, spmd=self.spmd,
                 overlap=self.overlap, overlap_chunks=self.overlap_chunks,
                 **kw)
         if self.slot_stats is None:
-            return run()
+            return run(draw())
+        if self._tracer is None:
+            self._tracer = spans.Tracer(self.device)
         counts, secs = collectives.COUNTS.copy(), dict(collectives.SECONDS)
         collectives.set_timing(True)
         _sync(self.device)
-        t0 = time.perf_counter()
+        self._tracer.begin()
         try:
-            out = run()
+            with spans.span("slot"):
+                batch = draw()
+                _sync(self.device)
+                t0 = time.perf_counter()
+                out = run(batch)
             _sync(self.device)
+            seconds = time.perf_counter() - t0
         finally:
+            self._tracer.stop()
             collectives.set_timing(False)
         event = "op" if kw.get("op") is not None else \
             ("local", "subnet", "hub")[kw.get("phase", protocol.PHASE_LOCAL)]
         self.slot_stats.append(dict(
-            event=event, seconds=time.perf_counter() - t0,
+            event=event, seconds=seconds,
             collectives=dict(collectives.COUNTS - counts),
             stage_s=collectives.SECONDS["stage"] - secs["stage"],
-            transfer_s=collectives.SECONDS["transfer"] - secs["transfer"]))
+            transfer_s=collectives.SECONDS["transfer"] - secs["transfer"],
+            spans=self._tracer.resolve()))
         return out
 
     def run_span(self, state: protocol.MLLTrainState,
@@ -307,22 +330,21 @@ class TrainHarness:
         for s in range(lo, hi):
             act = plan.active[s]
             idle = forced and not act.any()
+            draw = functools.partial(self._batch, batcher, rng)
             if plan.op_ids[s] == 0 and s not in op_mats:
                 if idle:
                     batcher.skip(rng, 1)
                     state = state._replace(step=state.step + 1)
                     continue
-                state, last_metrics = self.step(state, self._batch(batcher,
-                                                                   rng), act)
+                state, last_metrics = self._slot(state, draw, act)
             elif s in op_mats:
                 op = torch.as_tensor(op_mats[s], device=self.device)
-                state, last_metrics = self.step(
-                    state, self._batch(batcher, rng), act, op=op,
-                    compute_grads=not idle)
+                state, last_metrics = self._slot(state, draw, act, op=op,
+                                                 compute_grads=not idle)
             else:
-                state, last_metrics = self.step(
-                    state, self._batch(batcher, rng), act,
-                    phase=int(plan.op_ids[s]), compute_grads=not idle)
+                state, last_metrics = self._slot(
+                    state, draw, act, phase=int(plan.op_ids[s]),
+                    compute_grads=not idle)
         return state, last_metrics
 
 

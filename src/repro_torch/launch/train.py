@@ -104,8 +104,14 @@ class TrainLoopConfig:
     overlap_chunks: int = 4          # column chunks per mixing event
     device: str | None = None        # None = cuda; "cpu" runs the plain
                                      # versions of the kernels
-    profile_slots: bool = False      # per-slot seconds and collectives
-                                     # (`TrainHarness` ``slot_stats``)
+    profile_slots: bool = False      # trace every slot: its seconds,
+                                     # collectives and spans (slot, grads
+                                     # with forward / backward / grad_copy
+                                     # per worker, update, mix) on the
+                                     # host's and the card's clocks
+                                     # (`TrainHarness` ``slot_stats``,
+                                     # `launch.spans`); off, nothing of the
+                                     # tracer is built
 
 
 def replicate_params(params: dict, w: int) -> dict:

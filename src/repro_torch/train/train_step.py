@@ -40,6 +40,7 @@ from repro_torch.core.mllsgd import MLLConfig, MLLState, mll_train_step
 from repro_torch.core.protocol import MLLTrainState, protocol_step
 from repro_torch.core.timeline import (apply_event_operator,
                                        chunked_apply_operator)
+from repro_torch.launch import spans
 from repro_torch.models import model as model_mod
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -98,48 +99,52 @@ def per_worker_grads(params: Tree, batch: dict, cfg: ArchConfig, *,
     ``lax.scan``: zeros, + each chunk's gradient in order, times
     1/microbatch; loss, ce and aux averaged alike); the grads are then in
     ``accum_dtype``, else in the params' dtypes."""
-    if microbatch > 1:
-        b = batch["labels"].shape[1]
-        if b % microbatch:
-            raise ValueError(f"batch {b} not divisible by microbatch "
-                             f"{microbatch}")
-        acc = getattr(torch, accum_dtype)
-        grads = tree_map(lambda p: torch.empty(p.shape, dtype=acc,
-                                               device=p.device), params)
-    else:
-        grads = tree_map(torch.empty_like, params)
-    w = tree_leaves(params)[0].shape[0]
-    rows = []
-    for i in range(w):
-        wp = tree_map(lambda x: x[i].detach().requires_grad_(), params)
-        chunks = (_chunks(_worker(batch, i), microbatch) if microbatch > 1
-                  else [_worker(batch, i)])
-        total = None
-        for j, chunk in enumerate(chunks):
-            loss, m = loss_fn(wp, chunk, cfg, impl=impl, remat=remat)
-            # a leaf the loss does not read (the token table of a model fed
-            # frame embeddings) gets a zero gradient, as under jax.grad
-            g = torch.autograd.grad(loss, tree_leaves(wp), allow_unused=True,
-                                    materialize_grads=True)
+    with spans.span("grads"):
+        if microbatch > 1:
+            b = batch["labels"].shape[1]
+            if b % microbatch:
+                raise ValueError(f"batch {b} not divisible by microbatch "
+                                 f"{microbatch}")
+            acc = getattr(torch, accum_dtype)
+            grads = tree_map(lambda p: torch.empty(p.shape, dtype=acc,
+                                                   device=p.device), params)
+        else:
+            grads = tree_map(torch.empty_like, params)
+        w = tree_leaves(params)[0].shape[0]
+        rows = []
+        for i in range(w):
+            wp = tree_map(lambda x: x[i].detach().requires_grad_(), params)
+            chunks = (_chunks(_worker(batch, i), microbatch) if microbatch > 1
+                      else [_worker(batch, i)])
+            total = None
+            for j, chunk in enumerate(chunks):
+                with spans.span("forward"):
+                    loss, m = loss_fn(wp, chunk, cfg, impl=impl, remat=remat)
+                # a leaf the loss does not read (the token table of a model fed
+                # frame embeddings) gets a zero gradient, as under jax.grad
+                with spans.span("backward"):
+                    g = torch.autograd.grad(loss, tree_leaves(wp),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+                with torch.no_grad(), spans.span("grad_copy"):
+                    for dst, src in zip(tree_leaves(_worker(grads, i)), g):
+                        if microbatch == 1:
+                            dst.copy_(src)
+                        elif j == 0:
+                            dst.copy_(src.to(dst.dtype))
+                        else:
+                            dst.add_(src.to(dst.dtype))
+                row = torch.stack([loss.detach(), m["ce"].detach(),
+                                   m["aux"].detach()]).float()
+                total = row if total is None else total + row
+            rows.append(total)
+        table = torch.stack(rows)
+        if microbatch > 1:
+            inv = 1.0 / microbatch
             with torch.no_grad():
-                for dst, src in zip(tree_leaves(_worker(grads, i)), g):
-                    if microbatch == 1:
-                        dst.copy_(src)
-                    elif j == 0:
-                        dst.copy_(src.to(dst.dtype))
-                    else:
-                        dst.add_(src.to(dst.dtype))
-            row = torch.stack([loss.detach(), m["ce"].detach(),
-                               m["aux"].detach()]).float()
-            total = row if total is None else total + row
-        rows.append(total)
-    table = torch.stack(rows)
-    if microbatch > 1:
-        inv = 1.0 / microbatch
-        with torch.no_grad():
-            for x in tree_leaves(grads):
-                x.mul_(inv)
-        table = table * inv
+                for x in tree_leaves(grads):
+                    x.mul_(inv)
+            table = table * inv
     return grads, {"loss": table[:, 0], "ce": table[:, 1], "aux": table[:, 2]}
 
 

@@ -848,3 +848,169 @@ def test_cuda_cost_count_equals_meta(cuda_device, arch):
     assert dict(card.by_op) == dict(meta.by_op)
     assert (card.costs.flops, card.costs.bytes) == \
         (meta.costs.flops, meta.costs.bytes)
+
+
+
+# ------------------------------------------------ spans of a traced slot
+def _smoke_trainer(device):
+    """The smoke trainer (float32, W = 2 x 2, tau = q = 2, deadline, 32
+    slots) on ``device``, its first period run untraced -> (harness,
+    state, plan, data cursor, rng); slot 4 is next."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import protocol
+    from repro_torch.core.mllsgd import MLLConfig, build_network, build_state
+    from repro_torch.core.simulator import replicate
+    from repro_torch.core.timeline import get_policy
+    from repro_torch.data.pipeline import LMBatcher, make_token_stream
+    from repro_torch.launch.harness import TrainHarness
+    from repro_torch.models import model as model_mod
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              param_dtype="float32", compute_dtype="float32")
+    mll = MLLConfig(tau=2, q=2, eta=0.05, hub_topology="ring",
+                    worker_rates=(1.0, 0.8, 1.0, 0.6), mixing="two_stage")
+    net = build_network(mll, 2, 2)
+    st = build_state(mll, net, device=device)
+    plan = get_policy("deadline").plan(net, mll.schedule, 32,
+                                       np.random.default_rng(0))
+    h = TrainHarness(cfg, mll, st, gate_mode=plan.gate_mode)
+    params = model_mod.init_model(torch.Generator(device).manual_seed(0),
+                                  cfg, device=device)
+    state = protocol.init_train_state(replicate(params, 4), cfg=mll)
+    batcher = LMBatcher(make_token_stream(4, 8000, vocab_size=cfg.vocab_size,
+                                          seed=0), 32, 2)
+    rng = np.random.default_rng(0)
+    state, _ = h.run_span(state, plan, batcher, rng, 0, 4)
+    return h, state, plan, batcher, rng
+
+
+SPAN_NAMES = {"slot", "grads", "forward", "backward", "grad_copy", "update",
+              "mix"}
+
+
+@pytest.mark.cuda
+def test_cuda_span_device_times_ordered(cuda_device):
+    """Every span's device interval starts no earlier than its host start
+    and nests in its parent's; siblings follow one another on the card;
+    device end minus host end (the lag) is at least -0.05 ms, and every
+    reading of `launch.span_readings` is there."""
+    h, state, plan, batcher, rng = _smoke_trainer(cuda_device)
+    h.slot_stats = []
+    h.run_span(state, plan, batcher, rng, 4, 8)
+    assert [s["event"] for s in h.slot_stats] == ["local", "subnet",
+                                                  "local", "hub"]
+    eps = 5e-5
+    for rec in h.slot_stats:
+        tree = rec["spans"]
+        assert {s["name"] for s in tree} <= SPAN_NAMES
+        for s in tree:
+            (h0, h1), (d0, d1) = s["host"], s["device"]
+            assert h0 <= h1 and d0 <= d1
+            assert d0 >= h0 - eps and d1 - h1 >= -eps, s
+            if s["parent"] is not None:
+                p0, p1 = tree[s["parent"]]["device"]
+                assert p0 <= d0 and d1 <= p1
+        for i in {s["parent"] for s in tree}:
+            kids = [s["device"] for s in tree if s["parent"] == i]
+            assert all(a[1] <= b[0] for a, b in zip(kids, kids[1:]))
+    from repro_torch.launch.span_readings import readings
+    got = readings(h.slot_stats)
+    assert all(v is not None for v in got.values()), got
+    assert got["grads.device_lag_ms"] >= -0.05
+
+
+@pytest.mark.cuda
+def test_cuda_span_event_pool_does_not_grow(cuda_device, monkeypatch):
+    """After one period the tracer's pool holds the events of its largest
+    slot, and 20 traced slots more make none."""
+    h, state, plan, batcher, rng = _smoke_trainer(cuda_device)
+    h.slot_stats = []
+    state, _ = h.run_span(state, plan, batcher, rng, 4, 8)
+    size = len(h._tracer.pool)
+    assert size == 1 + 2 * max(len(s["spans"]) for s in h.slot_stats)
+    made = []
+    event = torch.cuda.Event
+
+    def counted(*a, **k):
+        made.append(1)
+        return event(*a, **k)
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    h.run_span(state, plan, batcher, rng, 8, 28)
+    assert len(h.slot_stats) == 24 and not made
+    assert len(h._tracer.pool) == size and not h._tracer.taken
+
+
+def _range_ops(events, name):
+    """(host start, first device start, last device end) in ns of the
+    `record_function` range ``name``: the device operations whose launch
+    (a runtime call, matched by correlation id) lies inside the range."""
+    cpu = torch.autograd.DeviceType.CPU
+    rng_ = next(e for e in events
+                if e.device_type() == cpu and e.name() == name)
+    a, b = rng_.start_ns(), rng_.end_ns()
+    inside = [e for e in events
+              if e.device_type() == cpu and a <= e.start_ns() <= b]
+    calls = {e.correlation_id() for e in inside
+             if e.name().startswith("cu")}
+    ops = {e.correlation_id() for e in inside}
+    card = [e for e in events
+            if e.device_type() != cpu and e.name() not in SPAN_NAMES]
+    # a device operation carries its runtime call's correlation id, or
+    # links to the operator that made the call
+    dev = ([e for e in card if e.correlation_id() in calls]
+           or [e for e in card if e.linked_correlation_id() in ops])
+    assert dev, name
+    return a, min(e.start_ns() for e in dev), max(e.end_ns() for e in dev)
+
+
+@pytest.mark.cuda
+def test_cuda_span_clock_agrees_with_the_profiler(cuda_device,
+                                                  monkeypatch):
+    """One profiled slot.  Where the card is busy at a span's ends, the
+    event-derived device times lie within 0.1 ms of the first and last
+    device operation launched inside the same profiler range, after one
+    common offset (the profiler's clock less the spans', taken at the
+    start of ``grads``): ``grads``, whose work queues behind a ~0.1 s
+    sleep kernel before it and a ~20 ms one after each worker's
+    backward.  ``update`` ends paced by the host (its last operation
+    done before the host closes the span): its device interval holds its
+    operations to within 0.1 ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import train_step
+
+    grads, backward = train_step.per_worker_grads, torch.autograd.grad
+
+    def busy_first(*a, **k):
+        torch.cuda._sleep(200_000_000)
+        return grads(*a, **k)
+
+    def busy_after(*a, **k):
+        out = backward(*a, **k)
+        torch.cuda._sleep(40_000_000)
+        return out
+    h, state, plan, batcher, rng = _smoke_trainer(cuda_device)
+    monkeypatch.setattr(train_step, "per_worker_grads", busy_first)
+    monkeypatch.setattr(torch.autograd, "grad", busy_after)
+    h.slot_stats = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h.run_span(state, plan, batcher, rng, 4, 5)
+    events = prof.profiler.kineto_results.events()
+    tree = {s["name"]: s for s in h.slot_stats[0]["spans"]}
+    gap = {}
+    for name in ("grads", "update"):
+        host, first, last = _range_ops(events, name)
+        (h0, _), (d0, d1) = tree[name]["host"], tree[name]["device"]
+        gap[name] = (first - 1e9 * d0, last - 1e9 * d1, host - 1e9 * h0)
+    offset = gap["grads"][0]
+    (g0, g1, _), (u0, u1, _) = ((v - offset for v in g)
+                                for g in gap.values())
+    print(f"first / last operation less the event, after the offset: "
+          f"grads {g0 / 1e3:+.1f} / {g1 / 1e3:+.1f} us, update "
+          f"{u0 / 1e3:+.1f} / {u1 / 1e3:+.1f} us; the offset taken from "
+          f"the host clocks {(gap['grads'][2] - offset) / 1e3:+.1f} us")
+    assert abs(g0) <= 1e5 and abs(g1) <= 1e5
+    assert u0 >= -1e5 and u1 <= 1e5
